@@ -1,0 +1,11 @@
+"""PyTorch/CUDA port of kazen_tpu for NVIDIA Hopper.
+
+The layout mirrors ``kazen_tpu`` module for module (``core``, ``samplers``,
+``scene``, ``accel``, ``shade``, ``integrate``, ``film``). Plain tensor code
+is PyTorch; the cluster-BVH trace kernels are CUDA C++ under
+``accel/csrc``, built with ``nvcc`` at first use into ``build/``.
+
+Entry points (``scene.compiler.compile_scene``, ``integrate.render.render``)
+run on ``device="cuda"`` unless the caller passes ``device="cpu"``, where
+every kernel is replaced by its plain PyTorch version.
+"""

@@ -1,0 +1,104 @@
+"""Film: filtered splat accumulation (block.cpp:56-96).
+
+The port of ``kazen_tpu/film/film.py`` for the full-pixel-grid lane layout
+(one lane per pixel, row-major): the film is one (H, W, 4) buffer (RGB +
+filter weight) and every filter-footprint offset is a 2D shift + add.
+Invalid (NaN or negative) radiance is dropped (block.cpp:57-61). Filters are
+evaluated analytically (rfilter.cpp:10-102): gaussian, mitchell, tent, box.
+"""
+from __future__ import annotations
+
+import math as pymath
+
+import numpy as np
+import torch
+
+from ..core import math as km
+
+
+def filter_radius(static) -> float:
+    """Per-kind radius: tent and box hard-code theirs (rfilter.cpp:77, 93)."""
+    kind = static.rfilter_kind
+    if kind == "tent":
+        return 1.0
+    if kind == "box":
+        return 0.5
+    return static.rfilter_radius
+
+
+def filter_eval(static, x):
+    """Filter value at offset x; zero outside the radius."""
+    kind = static.rfilter_kind
+    r = filter_radius(static)
+    ax = torch.abs(x)
+    if kind == "gaussian":
+        alpha = -1.0 / (2.0 * static.rfilter_stddev**2)
+        val = torch.clamp(torch.exp(alpha * ax * ax) - pymath.exp(alpha * r * r), min=0.0)
+    elif kind == "mitchell":
+        b, c = static.rfilter_b, static.rfilter_c
+        x2 = 2.0 * ax / r
+        x2sq = x2 * x2
+        inner = (
+            (12.0 - 9.0 * b - 6.0 * c) * x2 * x2sq
+            + (-18.0 + 12.0 * b + 6.0 * c) * x2sq
+            + (6.0 - 2.0 * b)
+        ) * (1.0 / 6.0)
+        outer = (
+            (-b - 6.0 * c) * x2 * x2sq
+            + (6.0 * b + 30.0 * c) * x2sq
+            + (-12.0 * b - 48.0 * c) * x2
+            + (8.0 * b + 24.0 * c)
+        ) * (1.0 / 6.0)
+        val = torch.where(x2 < 1.0, inner, torch.where(x2 < 2.0, outer, 0.0))
+    elif kind == "tent":
+        val = torch.clamp(1.0 - ax, min=0.0)
+    elif kind == "box":
+        val = torch.ones_like(ax)
+    else:
+        raise ValueError(f"unknown rfilter {kind}")
+    return torch.where(ax <= r, val, 0.0)
+
+
+def make_film(static, device) -> torch.Tensor:
+    return torch.zeros((static.height, static.width, 4), device=device)
+
+
+def _add_shifted(film, a, dy: int, dx: int) -> None:
+    """film[y+dy, x+dx] += a[y, x] where both lie in the image (in place)."""
+    h, w = a.shape[:2]
+    film[max(0, dy): h + min(0, dy), max(0, dx): w + min(0, dx)] += a[
+        max(0, -dy): h + min(0, -dy), max(0, -dx): w + min(0, -dx)
+    ]
+
+
+def splat_grid(static, film, jitter, value) -> torch.Tensor:
+    """Accumulate one sample per pixel into ``film`` (updated in place and
+    returned). jitter: (N, 2) sub-pixel positions in [0,1); value: (N, 3)."""
+    h, w = static.height, static.width
+    ok = (torch.isfinite(value) & (value >= 0.0)).all(dim=-1)
+    value = torch.where(ok[:, None], value, 0.0)
+    contrib = torch.cat([value, torch.ones_like(value[:, :1])], -1).reshape(h, w, 4)
+    # px - x = jitter - 0.5 for every lane
+    jx = (jitter[:, 0] - 0.5).reshape(h, w)
+    jy = (jitter[:, 1] - 0.5).reshape(h, w)
+    r = filter_radius(static)
+    d_lo = int(np.ceil(-(r + 0.5)))
+    d_hi = int(np.floor(r + 0.5))
+    for dy in range(d_lo, d_hi + 1):
+        wy = filter_eval(static, dy - jy)
+        for dx in range(d_lo, d_hi + 1):
+            wx = filter_eval(static, dx - jx)
+            _add_shifted(film, contrib * (wx * wy)[..., None], dy, dx)
+    return film
+
+
+def to_bitmap(film) -> torch.Tensor:
+    """Divide the accumulated RGB by the filter weight (block.cpp:39-45)."""
+    w = film[..., 3:4]
+    return torch.where(w > 0.0, film[..., :3] / torch.clamp(w, min=1e-9), 0.0)
+
+
+def to_srgb8(img) -> np.ndarray:
+    img = torch.as_tensor(img)
+    srgb = torch.clamp(km.to_srgb(torch.clamp(img, 0.0, 1.0)) * 255.0 + 0.5, 0, 255)
+    return srgb.cpu().numpy().astype(np.uint8)

@@ -1,0 +1,118 @@
+"""Shared helpers of the tests that hold kazen_tpu_torch against kazen_tpu:
+scene descriptions carried across, compiled scenes converted to numpy, and
+the small scenes the tests use."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+from kazen_tpu.accel import native as native_j
+from kazen_tpu.scene import description as DJ
+from kazen_tpu.scene.compiler import compile_scene as compile_jax
+from kazen_tpu_torch.accel import native as native_t
+from kazen_tpu_torch.scene import description as DT
+from kazen_tpu_torch.scene.compiler import compile_scene as compile_torch
+from kazen_tpu_torch.scene.compiler import scene_from_numpy
+
+from scenes import cornell_box, sphere_mesh
+
+KISS = dict(base_color=(0.6, 0.4, 0.8), metallic=0.3, roughness=0.3)
+KISS_COAT = dict(
+    base_color=(0.2, 0.7, 0.3), metallic=0.6, roughness=0.15, anisotropy=0.4,
+    specular=0.7, specular_tint=0.3, clearcoat=0.8, clearcoat_roughness=0.2,
+    sheen=0.5, sheen_tint=0.6,
+)
+
+
+def to_port(x):
+    """A kazen_tpu scene description as the same objects of the port's copy
+    of description.py, class by class and field by field."""
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        cls = getattr(DT, type(x).__name__)
+        return cls(**{f.name: to_port(getattr(x, f.name)) for f in dataclasses.fields(x)})
+    if isinstance(x, (list, tuple)):
+        return type(x)(to_port(v) for v in x)
+    return x
+
+
+def multi_cluster_scene(width=24, height=24, sampler="independent", spp=1,
+                        visible_lights=False, regularization=False):
+    """Cornell box + a kiss sphere (nu = nv = 24): 1,164 faces in several
+    clusters, so the per-bounce permute runs."""
+    extra = (
+        sphere_mesh([0.0, 0.8, 0.3], 0.45, nu=24, nv=24, bsdf=DJ.KazenStandard(**KISS)),
+    )
+    lk = {"primary_visibility": True} if visible_lights else None
+    return cornell_box(
+        width=width, height=height, spp=spp, sampler=sampler, extra_meshes=extra,
+        light_kwargs=lk, regularization=regularization,
+    )
+
+
+def materials_scene(width=16, height=16):
+    """Cornell box + two kiss spheres with different parameters (clearcoat,
+    sheen, anisotropy) beside the diffuse walls."""
+    extra = (
+        sphere_mesh([0.4, 0.5, 0.3], 0.3, nu=16, nv=12, bsdf=DJ.KazenStandard(**KISS)),
+        sphere_mesh([-0.4, 0.5, 0.2], 0.3, nu=16, nv=12, bsdf=DJ.KazenStandard(**KISS_COAT)),
+    )
+    return cornell_box(width=width, height=height, extra_meshes=extra)
+
+
+def single_cluster_scene(width=20, height=20):
+    """Cornell box + a small kiss sphere: 108 faces, one cluster (the
+    reference packs trace tables above 64 faces)."""
+    extra = (sphere_mesh([0.0, 0.6, 0.2], 0.4, nu=8, nv=6, bsdf=DJ.KazenStandard(**KISS)),)
+    return cornell_box(width=width, height=height, extra_meshes=extra)
+
+
+def compile_reference(desc):
+    """kazen_tpu's compile with its cluster trace tables packed (the CPU
+    backend otherwise leaves them out); K1/K2 then run through its shim."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("KAZEN_PALLAS_TRACE", "1")
+        arrays, static = compile_jax(desc)
+    assert arrays.trace_tables is not None
+    return arrays, static
+
+
+def compile_port(desc):
+    """The port's compile on the CPU, with the BVH builder that kazen_tpu
+    has in this process. kazen_tpu compiles its native builder in place at
+    first use, so a test process whose first use races another process's
+    build runs on its numpy builder, whose leaves list their faces in
+    another order; the port then runs its numpy builder too, and both
+    packages build the same tree."""
+    with pytest.MonkeyPatch.context() as mp:
+        if not native_j.available():
+            mp.setattr(native_t, "build", lambda V, F, leaf_size: None)
+        return compile_torch(to_port(desc), device="cpu")
+
+
+def reference_to_numpy(arrays, static):
+    """kazen_tpu's compiled (SceneArrays, SceneStatic) in the form
+    scene_from_numpy reads."""
+    out = {}
+    for name in (
+        "V", "F", "N", "UV", "face_shade", "face_mesh", "mesh_material", "mesh_light",
+        "mesh_has_normals", "mesh_has_uvs", "light_mesh", "light_radiance",
+        "light_primary_vis", "light_cdf", "light_faces", "light_inv_area", "bg_color",
+        "bg_intensity", "cam_to_world", "sample_to_camera", "cam_near", "cam_far",
+        "aperture_radius", "focus_distance",
+    ):
+        out[name] = np.asarray(getattr(arrays, name))
+    out["materials"] = {
+        k: np.asarray(v) for k, v in arrays.materials._asdict().items()
+    }
+    tt = arrays.trace_tables
+    out["trace_tables"] = {
+        "node_scalars": np.asarray(tt.node_scalars, np.float32),
+        "geo_shade": np.asarray(tt.geo_shade, np.float32),
+        "leaf_bounds": np.asarray(tt.leaf_bounds, np.float32),
+    }
+    return out, dataclasses.asdict(static)
+
+
+def port_from_reference(arrays, static):
+    """The port's scene built from kazen_tpu's compiled scene."""
+    return scene_from_numpy(*reference_to_numpy(arrays, static), device="cpu")
