@@ -2,23 +2,45 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
+Two paths of render() are driven: the ordered wavefront with the trace
+kernels K1/K2 on the stand-in scene (36,876 faces), and the megakernel K3 on
+scenes of at most 128 faces (Mixed 1080p: the Cornell box with kiss, mirror,
+GGX, dielectric and lambertian quads, 22 faces, depth 5; Toy 1080p: the
+12-triangle diffuse/kiss box, depth 4).
+
 Phases (each check raises; the script exits non-zero on the first failure):
 
-0. Build the CUDA trace kernels (nvcc, sm_90a) and the native BVH builder
-   (g++) from the sources in the checkout, in parallel.
-1. Each kernel against its plain PyTorch version on the card, on the
-   stand-in scene (Cornell box + a 36,864-triangle kiss sphere): 262,144
-   seeded random rays and one 1920x1080 frame of camera rays.
+0. Build the CUDA trace kernels and the megakernel (nvcc, sm_90a, one
+   library each) and the native BVH builder (g++) from the sources in the
+   checkout, in parallel; log each kernel's registers and spills.
+1. K1/K2 against their plain PyTorch versions on the card, on the stand-in
+   scene (Cornell box + a 36,864-triangle kiss sphere): 262,144 seeded
+   random rays and one 1920x1080 frame of camera rays.
 2. One 1-spp depth-5 sample pass at 64x36, on the card through the kernels
    and on the CPU through the plain versions: per-lane radiance compared.
-3. The main path: render() at 1920x1080, 1 spp, depth 5 -- one warm-up pass
-   with every kernel's launch count set to 0 before it and read after it,
-   then three passes timed with CUDA events.
-4. Each kernel replayed on the inputs it received in one main-path pass
-   (ms per launch), held against its plain version on the first and the
-   third of them, the plain version's time, and the kernel's bound.
-5. One main-path pass under torch.profiler: device busy time and the
-   kernels that take it (the full list goes to chiprun_out/).
+3. The wavefront path: render() at 1920x1080, 1 spp, depth 5 -- one warm-up
+   pass with every kernel's launch count set to 0 before it and read after
+   it (K1 and K2 launched, K3 not), then three passes timed with CUDA events.
+4. K1/K2 replayed on the inputs they received in one pass (ms per launch),
+   held against their plain versions on the first and the third of them, the
+   plain version's time, and the kernel's bound.
+5. One pass of each path (stand-in, Mixed 1080p) under torch.profiler:
+   device busy time and the kernels that take it (the full lists go to
+   chiprun_out/).
+6. K3 against its plain version on the card: the Mixed 1080p sample-0 camera
+   rays and streams; at 64x36 the stratified and correlated samplers, and
+   regularization with a background, with and without lights.
+7. K3 against the port's li_wavefront on the card, on the same inputs.
+8. The megakernel path at 64x36 on the card against the same path on the
+   CPU (the plain version).
+9. The megakernel path: render() at 1920x1080 on Mixed and on Toy -- launch
+   counts set to 0 before a warm-up pass and read after it (K3 once, K1/K2
+   never), the image checked, three passes timed with CUDA events; then K3
+   replayed on the input of Mixed's launch (ms per launch, bound).
+
+Every comparison of radiance holds PERF.md's gate: per-lane radiance within
+rtol 1e-3 / atol 1e-4 on >= 99% of lanes, channel means within 0.5% and ray
+totals within 0.1%.
 
 The second-to-last line is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script exits non-zero and
@@ -50,6 +72,16 @@ PEAK_F32_FLOPS = 67e12
 # 2 cross products (9 each), 4 dot products (5 each), 3 subtractions,
 # 1 division, 3 scalings by 1/det
 MT_FLOPS = 2 * 9 + 4 * 5 + 3 + 1 + 3
+# f32 operations of one megakernel bounce besides its triangle tests, read
+# from csrc/megakernel.cu for a diffuse bounce with NEE, counting sqrt, sin,
+# cos and a division as one each: hit point 48, shading frame 45, local wi
+# 15, light sample 60, BSDF eval 10, MIS 10, BSDF sample 20, world wo 15,
+# emitter MIS 20, stream draws 8 (integer work not counted). Kiss and GGX
+# bounces cost more, so this undercounts, as a bound may.
+SHADE_FLOPS = 48 + 45 + 15 + 60 + 10 + 10 + 20 + 15 + 20 + 8
+# the rows a consumer of K3 reads: rays o, d (6 f32) and the six int64
+# stream fields in, li rgb and the ray count (4 f32) out, per lane
+K3_IO_BYTES = 6 * 4 + 6 * 8 + 4 * 4
 
 
 def log(msg: str) -> None:
@@ -104,12 +136,26 @@ def _sphere(D, center, radius, nu, nv, bsdf):
     )
 
 
-def stand_in_scene(D, width, height):
-    """Cornell box + lat-long kiss sphere, 1 spp, depth 5, independent
-    sampler, primary-invisible area light (punch-through and the any-hit
-    light skip both run)."""
-    wall = D.Diffuse((0.725, 0.71, 0.68))
-    meshes = [
+def _box_scene(D, meshes, width, height, depth, rfilter, sampler="independent", spp=1,
+               regularization=False, background=None):
+    cam = D.PerspectiveCamera(
+        width=width, height=height, fov=60.0,
+        to_world=D.lookat(origin=[0, 1, -2.5], target=[0, 1, 0], up=[0, 1, 0]),
+    )
+    return D.Scene(
+        meshes=meshes, camera=cam,
+        sampler=D.Sampler(kind=sampler, sample_count=spp, seed=1),
+        integrator=D.PathMis(max_depth=depth, regularization=regularization),
+        rfilter=D.RFilter(kind=rfilter),
+        background=background,
+    )
+
+
+def _cornell_meshes(D, wall=None):
+    """The Cornell box of tests/scenes.py with its primary-invisible area
+    light (punch-through and the any-hit light skip both run)."""
+    wall = wall or D.Diffuse((0.725, 0.71, 0.68))
+    return [
         _quad(D, [-1, 0, -1], [0, 0, 2], [2, 0, 0], wall),
         _quad(D, [-1, 2, -1], [2, 0, 0], [0, 0, 2], wall),
         _quad(D, [-1, 0, 1], [0, 2, 0], [2, 0, 0], wall),
@@ -119,21 +165,65 @@ def stand_in_scene(D, width, height):
             D, [-0.3, 1.98, -0.3], [0.6, 0, 0], [0, 0, 0.6], D.Diffuse((0, 0, 0)),
             light=D.AreaLight(color=(1.0, 1.0, 1.0), intensity=20.0),
         ),
-        _sphere(
-            D, [0.0, 0.7, 0.2], 0.6, SPHERE_NU, SPHERE_NV,
-            D.KazenStandard(base_color=(0.6, 0.4, 0.8), metallic=0.3, roughness=0.3),
-        ),
     ]
-    cam = D.PerspectiveCamera(
-        width=width, height=height, fov=60.0,
-        to_world=D.lookat(origin=[0, 1, -2.5], target=[0, 1, 0], up=[0, 1, 0]),
+
+
+def stand_in_scene(D, width, height):
+    """Cornell box + lat-long kiss sphere, 1 spp, depth 5, independent
+    sampler, gaussian filter."""
+    sphere = _sphere(
+        D, [0.0, 0.7, 0.2], 0.6, SPHERE_NU, SPHERE_NV,
+        D.KazenStandard(base_color=(0.6, 0.4, 0.8), metallic=0.3, roughness=0.3),
     )
-    return D.Scene(
-        meshes=meshes, camera=cam,
-        sampler=D.Sampler(kind="independent", sample_count=1, seed=1),
-        integrator=D.PathMis(max_depth=DEPTH),
-        rfilter=D.RFilter(kind="gaussian"),
+    return _box_scene(D, _cornell_meshes(D) + [sphere], width, height, DEPTH, "gaussian")
+
+
+def mixed_scene(D, width, height, sampler="independent", spp=1):
+    """Mixed: the Cornell box plus one quad each of kiss, mirror, GGX and
+    dielectric (where tests/test_megakernel.py puts them) and lambertian,
+    all facing the camera: 22 faces, every BSDF branch of K3. Depth 5, box
+    filter."""
+    quads = [
+        _quad(D, [-0.8, 0.0, 0.6], [0, 0.6, 0], [0.6, 0, 0], D.KazenStandard(
+            base_color=(0.7, 0.3, 0.2), metallic=0.4, roughness=0.35, clearcoat=0.6,
+            sheen=0.4,
+        )),
+        _quad(D, [0.2, 0.0, 0.6], [0, 0.6, 0], [0.6, 0, 0], D.Mirror()),
+        _quad(D, [-0.8, 0.8, 0.6], [0, 0.6, 0], [0.6, 0, 0],
+              D.GGX(albedo=(0.9, 0.7, 0.4), roughness=0.2)),
+        _quad(D, [0.2, 0.8, 0.6], [0, 0.6, 0], [0.6, 0, 0], D.Dielectric()),
+        _quad(D, [-0.3, 1.3, 0.9], [0, 0.5, 0], [0.6, 0, 0],
+              D.Lambertian(albedo=D.ConstantTexture((0.3, 0.6, 0.5)))),
+    ]
+    return _box_scene(D, _cornell_meshes(D) + quads, width, height, DEPTH, "box", sampler, spp)
+
+
+def variant_scene(D, width, height, light=True):
+    """The box with kiss walls, roughness regularization and a constant
+    background (tests/test_megakernel.py's regularization case), with its
+    light or without: the branches of K3 that Mixed and Toy leave out."""
+    meshes = _cornell_meshes(D, D.KazenStandard(base_color=(0.6, 0.6, 0.6), roughness=0.4))
+    background = D.Background(texture=D.ConstantTexture((0.2, 0.3, 0.4)), intensity=1.5)
+    return _box_scene(
+        D, meshes if light else meshes[:-1], width, height, DEPTH, "box",
+        regularization=True, background=background,
     )
+
+
+def toy_scene(D, width, height):
+    """Toy: the 12-triangle box the reference's bench tracked (diffuse walls,
+    a kiss back wall, a primary-invisible light), depth 4, box filter."""
+    gray = D.Diffuse((0.7, 0.7, 0.7))
+    meshes = [
+        _quad(D, [-1, 0, -1], [0, 0, 2], [2, 0, 0], gray),
+        _quad(D, [-1, 2, -1], [2, 0, 0], [0, 0, 2], gray),
+        _quad(D, [-1, 0, 1], [0, 2, 0], [2, 0, 0], D.KazenStandard()),
+        _quad(D, [-1, 0, -1], [0, 2, 0], [0, 0, 2], D.Diffuse((0.6, 0.1, 0.1))),
+        _quad(D, [1, 0, -1], [0, 0, 2], [0, 2, 0], D.Diffuse((0.1, 0.6, 0.1))),
+        _quad(D, [-0.3, 1.98, -0.3], [0.6, 0, 0], [0, 0, 0.6], D.Diffuse((0, 0, 0)),
+              light=D.AreaLight(intensity=15.0)),
+    ]
+    return _box_scene(D, meshes, width, height, 4, "box")
 
 
 # ---------------------------------------------------------------------------
@@ -172,15 +262,18 @@ def random_rays(torch, n, device):
     )
 
 
-def camera_rays(torch, scene, static, spec):
-    """One frame of camera rays as the render pass makes them (sample 0)."""
+def camera_rays(torch, scene, static, spec, sample=0):
+    """One frame of camera rays and their streams, as the render pass makes
+    them for sample pass ``sample``."""
     from kazen_tpu_torch.core import rng
     from kazen_tpu_torch.integrate import camera as camera_mod
     from kazen_tpu_torch.integrate.render import pixel_grid
     from kazen_tpu_torch.samplers import streams
 
     px, py = pixel_grid(static, scene.device)
-    stream = streams.init_stream_jump(spec, px, py, 0, rng.advance_constants(0))
+    stream = streams.init_stream_jump(
+        spec, px, py, sample, rng.advance_constants(sample * 65536)
+    )
     stream, jitter = streams.next_pixel_2d(spec, stream)
     stream, aperture = streams.next_2d(spec, stream)
     ps = torch.stack([px, py], -1).to(torch.float32) + jitter
@@ -223,16 +316,54 @@ def check_any_hit(torch, ct, tables, rays, label, phase=1):
 
 
 def li_lanes(torch, scene, static):
-    """Per-lane radiance of sample pass 0 (the render pass before the splat)."""
-    from kazen_tpu_torch.integrate.path_mis import li_wavefront
-    from kazen_tpu_torch.integrate.render import sampler_spec
+    """Per-lane radiance of sample pass 0 (the render pass before the splat),
+    through the route render() takes for the scene."""
+    from kazen_tpu_torch.integrate.render import li_fn_for, sampler_spec
 
     spec = sampler_spec(static)
     stream, rays = camera_rays(torch, scene, static, spec)
-    return li_wavefront(scene, static, spec, stream, rays)[1]
+    return li_fn_for(static)(scene, static, spec, stream, rays)[1:]
 
 
-def profile_pass(torch, fn, out_dir, top=15):
+def timed(torch, fn):
+    """(fn(), ms of that one call timed with CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def check_li(torch, got, want, label, phase):
+    """PERF.md's gate on two (li (N, 3), rays) pairs: per-lane radiance within
+    rtol 1e-3 / atol 1e-4 on >= 99% of lanes, channel means within 0.5%,
+    ray totals within 0.1%. Returns (max abs err over all lanes, lane share)."""
+    (li_a, rays_a), (li_b, rays_b) = got, want
+    li_a, li_b = li_a.float().cpu(), li_b.float().cpu()
+    rays_a, rays_b = float(rays_a), float(rays_b)  # numbers or 0-d tensors
+    share = torch.isclose(li_a, li_b, rtol=1e-3, atol=1e-4).all(-1).float().mean().item()
+    m_a, m_b = li_a.double().mean(0), li_b.double().mean(0)
+    rel_mean = ((m_a - m_b).abs() / m_b.abs().clamp(min=1e-12)).max().item()
+    rel_rays = abs(rays_a - rays_b) / max(rays_b, 1.0)
+    err = (li_a - li_b).abs().max().item()
+    log(f"phase {phase}: {label}: N={li_a.shape[0]} {share:.6f} of lanes agree, max abs "
+        f"err {err:.3g}, channel means {[round(x, 6) for x in m_a.tolist()]} vs "
+        f"{[round(x, 6) for x in m_b.tolist()]} (max rel {rel_mean:.3g}), rays {rays_a:.0f} "
+        f"vs {rays_b:.0f} (rel {rel_rays:.3g})")
+    if not bool(torch.isfinite(li_a).all()):
+        raise AssertionError(f"phase {phase}: {label}: non-finite radiance")
+    if share < 0.99:
+        raise AssertionError(f"phase {phase}: {label}: only {share:.5f} of lanes agree (< 0.99)")
+    if rel_mean > 0.005:
+        raise AssertionError(f"phase {phase}: {label}: channel means differ by {rel_mean:.4g}")
+    if rel_rays > 0.001:
+        raise AssertionError(f"phase {phase}: {label}: ray totals differ by {rel_rays:.4g}")
+    return err, share
+
+
+def profile_pass(torch, fn, out_dir, name, top=15):
     """One call of ``fn`` under torch.profiler: wall ms, the device time
     summed over every kernel, and the kernels that take the most of it."""
     from torch.profiler import ProfilerActivity, profile
@@ -253,10 +384,11 @@ def profile_pass(torch, fn, out_dir, top=15):
         ms, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + e.device_time_total / 1e3, n + 1)
     device_ms = sum(ms for ms, _ in by_name.values())
-    trace_ms = sum(ms for name, (ms, _) in by_name.items()
-                   if "nearest_kernel" in name or "any_hit_kernel" in name)
+    trace_ms = sum(ms for k, (ms, _) in by_name.items()
+                   if "nearest_kernel" in k or "any_hit_kernel" in k)
+    mega_ms = sum(ms for k, (ms, _) in by_name.items() if "megakernel" in k)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    with open(os.path.join(out_dir, "chip_smoke_profile.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"chip_smoke_profile_{name}.txt"), "w") as f:
         for name, (ms, n) in ranked:
             f.write(f"{ms:10.3f} ms {n:6d}x  {name}\n")
     return {
@@ -264,6 +396,7 @@ def profile_pass(torch, fn, out_dir, top=15):
         "device_ms": device_ms,
         "busy_share": device_ms / wall_ms,
         "trace_kernel_ms": trace_ms,
+        "megakernel_ms": mega_ms,
         "kernel_launches": len(kernels),
         "top": [{"name": n, "device_ms": ms, "count": c} for n, (ms, c) in ranked[:top]],
     }
@@ -277,6 +410,7 @@ def main() -> int:
         return 2
     from kazen_tpu_torch.accel import cluster_trace as ct
     from kazen_tpu_torch.accel.native import library_path as bvh_library
+    from kazen_tpu_torch.integrate import megakernel as mk
     from kazen_tpu_torch.integrate.render import render, sampler_spec
     from kazen_tpu_torch.scene import description as D
     from kazen_tpu_torch.scene.compiler import compile_scene
@@ -284,21 +418,24 @@ def main() -> int:
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     dev = torch.device("cuda")
-    kernels = {"K1": ct.NEAREST, "K2": ct.ANY_HIT}
+    kernels = {"K1": ct.NEAREST, "K2": ct.ANY_HIT, "K3": mk.MEGAKERNEL}
 
     # ---- phase 0: build -------------------------------------------------
     t0 = time.time()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         f_trace = pool.submit(ct.build_library)
+        f_mega = pool.submit(mk.build_library)
         f_bvh = pool.submit(bvh_library)
-        _, nvcc_out = f_trace.result()
+        nvcc_out = {"trace": f_trace.result()[1], "megakernel": f_mega.result()[1]}
         f_bvh.result()
     build_s = time.time() - t0
     smi = nvidia_smi_line()
-    log(f"phase 0: built the trace kernels and the BVH builder in {build_s:.1f} s")
-    for line in nvcc_out.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log(f"  ptxas: {line.strip()}")
+    log(f"phase 0: built the trace kernels, the megakernel and the BVH builder in "
+        f"{build_s:.1f} s")
+    for lib, text in nvcc_out.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"  ptxas ({lib}): {line.strip()}")
     log(f"phase 0: torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
     log(smi)  # the card's name and power limit, as nvidia-smi gives them
@@ -332,24 +469,10 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # ---- phase 2: path on the card vs the port on the CPU ---------------
-    t0 = time.time()
     small = stand_in_scene(D, SMALL_W, SMALL_H)
-    li_gpu = li_lanes(torch, *compile_scene(small, device="cuda")).cpu()
-    torch.cuda.synchronize()
-    li_cpu = li_lanes(torch, *compile_scene(small, device="cpu"))
-    close = torch.isclose(li_gpu, li_cpu, rtol=1e-3, atol=1e-4).all(-1)
-    lane_share = close.float().mean().item()
-    m_gpu, m_cpu = li_gpu.mean(0), li_cpu.mean(0)
-    rel_mean = ((m_gpu - m_cpu).abs() / m_cpu.abs().clamp(min=1e-12)).max().item()
-    log(f"phase 2: {SMALL_W}x{SMALL_H} pass, GPU vs CPU: {lane_share:.5f} of lanes "
-        f"agree, channel means {m_gpu.tolist()} vs {m_cpu.tolist()} "
-        f"(max rel {rel_mean:.3g}), {time.time() - t0:.1f} s")
-    if not bool(torch.isfinite(li_gpu).all()):
-        raise AssertionError("phase 2: non-finite radiance on the card")
-    if lane_share < 0.99:
-        raise AssertionError(f"phase 2: only {lane_share:.5f} of lanes agree (< 0.99)")
-    if rel_mean > 0.005:
-        raise AssertionError(f"phase 2: channel means differ by {rel_mean:.4g} (> 0.5%)")
+    check_li(torch, li_lanes(torch, *compile_scene(small, device="cuda")),
+             li_lanes(torch, *compile_scene(small, device="cpu")),
+             f"{SMALL_W}x{SMALL_H} pass, card vs CPU", 2)
 
     # ---- phase 3: the main path at full size -----------------------------
     for k in kernels.values():
@@ -361,10 +484,12 @@ def main() -> int:
     warm_s = time.time() - t0
     launches = {name: k.launches for name, k in kernels.items()}
     log(f"phase 3: warm-up pass {warm_s * 1e3:.1f} ms (host clock), launches "
-        f"K1 {launches['K1']}, K2 {launches['K2']}")
-    for name, n in launches.items():
-        if n <= 0:
+        f"K1 {launches['K1']}, K2 {launches['K2']}, K3 {launches['K3']}")
+    for name in ("K1", "K2"):
+        if launches[name] <= 0:
             raise AssertionError(f"phase 3: {name} was not launched on the main path")
+    if launches["K3"] != 0:
+        raise AssertionError("phase 3: the stand-in scene took the megakernel")
     if tuple(img.shape) != (HEIGHT, WIDTH, 3) or not bool(torch.isfinite(img).all()):
         raise AssertionError("phase 3: image is not a finite (1080, 1920, 3) array")
     img_mean = img.mean().item()
@@ -380,9 +505,9 @@ def main() -> int:
         scene, static, spec, film_mod.make_film(static, dev), px, py, 0,
         rng.advance_constants(0),
     )
-    nrays = float(nrays.item())
+    nrays_stand_in = float(nrays.item())
     log(f"phase 3: 1920x1080 1-spp depth-5 pass {pass_ms:.2f} ms (mean of 3, CUDA "
-        f"events), {nrays / pass_ms * 1e3:.4g} rays/s, "
+        f"events), {nrays_stand_in / pass_ms * 1e3:.4g} rays/s, "
         f"{WIDTH * HEIGHT / pass_ms * 1e3:.4g} pixel-samples/s, image mean "
         f"{img_mean:.5f} [{smi}]")
     from kazen_tpu_torch.film.io import save_png
@@ -408,6 +533,7 @@ def main() -> int:
         ct.trace_cuda, ct.occluded_cuda = trace_cuda, occluded_cuda
     torch.cuda.synchronize()
     fns = {"K1": (trace_cuda, ct.trace_plain), "K2": (occluded_cuda, ct.occluded_plain)}
+    pass_launches = {name: launches[name] for name in fns}
     table_bytes = {
         "K1": sum(t.numel() * 4 for t in (tables.node_scalars, tables.tri, tables.geo_shade)),
         "K2": sum(t.numel() * 4 for t in (tables.node_scalars, tables.tri)),
@@ -449,7 +575,7 @@ def main() -> int:
             "route": "cuda",
             "source": "kazen_tpu_torch/accel/csrc/cluster_trace.cu",
             "replaces": k.replaces,
-            "launches": launches[name],
+            "launches": pass_launches[name],
             "max_abs_err": check[name][0],
             "ms": float(np.mean(ms_each)),
             "plain_ms": plain_ms,
@@ -470,16 +596,156 @@ def main() -> int:
     del captured
     torch.cuda.synchronize()
 
-    # ---- phase 5: where the time of one main-path pass goes ---------------
-    profile = profile_pass(torch, lambda: render(scene, static, device="cuda"), out_dir)
-    log(f"phase 5: profiled pass {profile['wall_ms']:.1f} ms, device busy "
-        f"{profile['device_ms']:.1f} ms ({profile['busy_share']:.3f}), trace kernels "
-        f"{profile['trace_kernel_ms']:.1f} ms, {profile['kernel_launches']} launches [{smi}]")
-    for row in profile["top"]:
-        log(f"  {row['device_ms']:9.3f} ms {row['count']:6d}x  {row['name'][:90]}")
+    # ---- phase 5: where the time of one pass of each path goes ------------
+    mixed, mixed_static = compile_scene(mixed_scene(D, WIDTH, HEIGHT), device="cuda")
+    toy, toy_static = compile_scene(toy_scene(D, WIDTH, HEIGHT), device="cuda")
+    if not (mixed_static.use_megakernel and toy_static.use_megakernel):
+        raise AssertionError("phase 5: Mixed and Toy must take the megakernel on CUDA")
+    profiles = {}
+    for label, sc, st in (("stand_in", scene, static), ("mixed", mixed, mixed_static)):
+        prof = profile_pass(torch, lambda: render(sc, st, device="cuda"), out_dir, label)
+        profiles[label] = prof
+        log(f"phase 5: {label} profiled pass {prof['wall_ms']:.1f} ms, device busy "
+            f"{prof['device_ms']:.2f} ms ({prof['busy_share']:.3f}), trace kernels "
+            f"{prof['trace_kernel_ms']:.2f} ms, megakernel {prof['megakernel_ms']:.2f} ms, "
+            f"{prof['kernel_launches']} launches [{smi}]")
+        for row in prof["top"][:8]:
+            log(f"  {row['device_ms']:9.3f} ms {row['count']:6d}x  {row['name'][:90]}")
+
+    # ---- phase 6: K3 against its plain version on the card ----------------
+    from kazen_tpu_torch.integrate.path_mis import li_wavefront
+
+    def k3_inputs(sc, st, sample):
+        """Sample pass ``sample``'s streams and camera rays, contiguous as the
+        kernel takes them."""
+        spec_ = sampler_spec(st)
+        stream_, rays_ = camera_rays(torch, sc, st, spec_, sample)
+        stream_ = type(stream_)(*(f.contiguous() for f in stream_))
+        return spec_, stream_, rays_._replace(o=rays_.o.contiguous(), d=rays_.d.contiguous())
+
+    def li_of(out):
+        return out[0:3].T, out[3].double().sum().item()
+
+    frames = {"Mixed 1080p independent": (mixed, mixed_static, 0)}
+    for sampler, spp, sample in (("stratified", 4, 2), ("correlated", 8, 1)):
+        frames[f"Mixed {SMALL_W}x{SMALL_H} {sampler}"] = (
+            *compile_scene(mixed_scene(D, SMALL_W, SMALL_H, sampler, spp), device="cuda"),
+            sample,
+        )
+    for label, light in (("regularization + background", True), ("no lights", False)):
+        frames[f"{label} {SMALL_W}x{SMALL_H}"] = (
+            *compile_scene(variant_scene(D, SMALL_W, SMALL_H, light), device="cuda"), 0,
+        )
+    k3_err, k3_share, k3_out = 0.0, 1.0, {}
+    for label, (sc, st, sample) in frames.items():
+        spec_, stream_, rays_ = k3_inputs(sc, st, sample)
+        out_k = mk.megakernel_cuda(sc.mega, st.mega_cfg, rays_.o, rays_.d, stream_)
+        out_p, p_ms = timed(
+            torch, lambda: mk.megakernel_plain(sc.mega, st.mega_cfg, rays_.o, rays_.d, stream_)
+        )
+        k3_out[label] = (out_k, out_p, p_ms)
+        err, share = check_li(torch, li_of(out_k), li_of(out_p), f"K3 vs plain, {label}", 6)
+        k3_err, k3_share = max(k3_err, err), min(k3_share, share)
+        log(f"phase 6: plain version {p_ms:.1f} ms on {label}")
+
+    # ---- phase 7: K3 against the wavefront on the card --------------------
+    for label, (sc, st, sample) in frames.items():
+        spec_, stream_, rays_ = k3_inputs(sc, st, sample)
+        check_li(torch, li_of(k3_out[label][0]), li_wavefront(sc, st, spec_, stream_, rays_)[1:],
+                 f"K3 vs li_wavefront, {label}", 7)
+
+    # ---- phase 8: the megakernel path on the card against the CPU -----------
+    small = mixed_scene(D, SMALL_W, SMALL_H)
+    gpu_scene, gpu_static = compile_scene(small, device="cuda")
+    cpu_scene, cpu_static = compile_scene(small, device="cpu", megakernel=True)
+    check_li(torch, li_lanes(torch, gpu_scene, gpu_static),
+             li_lanes(torch, cpu_scene, cpu_static),
+             f"Mixed {SMALL_W}x{SMALL_H} pass, card vs CPU", 8)
+
+    # ---- phase 9: the megakernel path at full size ------------------------
+    passes = {}
+    for label, sc, st in (("Mixed", mixed, mixed_static), ("Toy", toy, toy_static)):
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        img = render(sc, st, device="cuda")
+        torch.cuda.synchronize()
+        warm_s = time.time() - t0
+        counts = {name: k.launches for name, k in kernels.items()}
+        log(f"phase 9: {label} 1080p warm-up pass {warm_s * 1e3:.1f} ms (host clock), "
+            f"launches K1 {counts['K1']}, K2 {counts['K2']}, K3 {counts['K3']}")
+        if counts["K3"] != st.sample_count or counts["K1"] or counts["K2"]:
+            raise AssertionError(f"phase 9: {label} did not take the megakernel route: {counts}")
+        if tuple(img.shape) != (HEIGHT, WIDTH, 3) or not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"phase 9: {label} image is not a finite (1080, 1920, 3) array")
+        mean = img.mean().item()
+        if not mean > 0.0:
+            raise AssertionError(f"phase 9: {label} image mean is not > 0")
+        ms_ = cuda_ms(torch, lambda: render(sc, st, device="cuda"), 3)
+        spec_, stream_, rays_ = k3_inputs(sc, st, 0)
+        captured = []
+        kernel_fn = mk.megakernel_cuda
+
+        def rec(tables_, cfg_, o_, d_, stream__):
+            captured.append((o_.clone(), d_.clone(), type(stream__)(*(f.clone() for f in stream__))))
+            return kernel_fn(tables_, cfg_, o_, d_, stream__)
+
+        mk.megakernel_cuda = rec
+        try:
+            render(sc, st, device="cuda")
+        finally:
+            mk.megakernel_cuda = kernel_fn
+        o_, d_, stream__ = captured[0]
+        if not (torch.equal(o_, rays_.o) and torch.equal(d_, rays_.d)):
+            raise AssertionError(f"phase 9: {label}'s launch input is not the sample-0 frame")
+        out = kernel_fn(sc.mega, st.mega_cfg, o_, d_, stream__)
+        k_ms = cuda_ms(torch, lambda: kernel_fn(sc.mega, st.mega_cfg, o_, d_, stream__), 5)
+        nrays = out[3].double().sum().item()
+        tests = out[4].double().sum().item()
+        bounces = out[5].double().sum().item()
+        table_bytes = sum(
+            t.numel() * 4 for t in (sc.mega.geo, sc.mega.attr, sc.mega.mats,
+                                    sc.mega.light_tris, sc.mega.light_cdf, sc.mega.light_info)
+        )
+        t_bytes = (K3_IO_BYTES * o_.shape[0] + table_bytes) / PEAK_BYTES_PER_S * 1e3
+        t_ops = (tests * MT_FLOPS + bounces * SHADE_FLOPS) / PEAK_F32_FLOPS * 1e3
+        passes[label] = dict(
+            pass_ms=ms_, warm_ms=warm_s * 1e3, image_mean=mean, rays=nrays,
+            launches=counts["K3"], k3_ms=k_ms, tests=tests, bounces=bounces,
+            bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+            bound_bytes_ms=t_bytes, bound_ops_ms=t_ops,
+        )
+        log(f"phase 9: {label} 1920x1080 1-spp depth-{st.max_depth} pass {ms_:.3f} ms (mean of "
+            f"3, CUDA events), {nrays / ms_ * 1e3:.4g} rays/s, "
+            f"{WIDTH * HEIGHT / ms_ * 1e3:.4g} pixel-samples/s, image mean {mean:.5f} [{smi}]")
+        log(f"phase 9: {label} K3 {k_ms:.3f} ms per launch (mean of 5), {tests:.4g} triangle "
+            f"tests, {bounces:.4g} bounces, {nrays:.0f} rays; bound {max(t_bytes, t_ops):.4f} ms "
+            f"(bytes {t_bytes:.4f}, operations {t_ops:.4f}) [{smi}]")
+        save_png(os.path.join(out_dir, f"chip_smoke_{label.lower()}_1080p.png"), img.cpu())
+
+    mixed_run = passes["Mixed"]
+    rows.append({
+        "name": mk.MEGAKERNEL.name,
+        "route": "cuda",
+        "source": "kazen_tpu_torch/integrate/csrc/megakernel.cu",
+        "replaces": mk.MEGAKERNEL.replaces,
+        "launches": mixed_run["launches"],
+        "max_abs_err": k3_err,
+        "ms": mixed_run["k3_ms"],
+        "plain_ms": k3_out["Mixed 1080p independent"][2],
+        "bound_ms": mixed_run["bound_ms"],
+        "bound_by": mixed_run["bound_by"],
+        "library_ms": None,
+        "agreement": k3_share,
+        "toy_ms": passes["Toy"]["k3_ms"],
+        "tests_per_pass": mixed_run["tests"],
+        "bounces_per_pass": mixed_run["bounces"],
+    })
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-        json.dump({"card": smi, "pass_ms": pass_ms, "rays_per_pass": nrays,
-                   "kernels": rows, "profile": profile}, f, indent=1)
+        json.dump({"card": smi, "pass_ms": pass_ms, "rays_per_pass": nrays_stand_in,
+                   "megakernel_passes": passes, "kernels": rows, "profiles": profiles},
+                  f, indent=1)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({
@@ -487,7 +753,7 @@ def main() -> int:
         "device": {
             "platform": "gpu",
             "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count(),
+            "count": 1,  # the run uses one card
         },
     }), flush=True)
     return 0

@@ -2,8 +2,9 @@
 
 The layout mirrors ``kazen_tpu`` module for module (``core``, ``samplers``,
 ``scene``, ``accel``, ``shade``, ``integrate``, ``film``). Plain tensor code
-is PyTorch; the cluster-BVH trace kernels are CUDA C++ under
-``accel/csrc``, built with ``nvcc`` at first use into ``build/``.
+is PyTorch; the kernels are CUDA C++ (the cluster-BVH trace under
+``accel/csrc``, the path_mis megakernel under ``integrate/csrc``), built
+with ``nvcc`` at first use into ``build/`` (``cuda_build.py``).
 
 Entry points (``scene.compiler.compile_scene``, ``integrate.render.render``)
 run on ``device="cuda"`` unless the caller passes ``device="cpu"``, where

@@ -31,16 +31,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
-import shutil
-import subprocess
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ..build_dir import build_dir
+from .. import cuda_build
+from ..cuda_build import CudaKernel
 from .bvh import build_bvh
 from .intersect import moller_trumbore, moller_trumbore_edges
 
@@ -375,35 +373,10 @@ def occluded_plain(tables: ClusterTables, rays: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA trace kernels cannot be built")
-    return path
-
-
 def build_library() -> "tuple[str, str]":
     """Compile csrc/cluster_trace.cu for sm_90a into the build directory
     (once per source hash). Returns (library path, compiler output)."""
-    with open(SOURCE, "rb") as f:
-        tag = hashlib.sha1(f.read()).hexdigest()[:12]
-    lib = os.path.join(build_dir(), f"libkazen_trace_{tag}.so")
-    if os.path.exists(lib):
-        return lib, ""
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    res = subprocess.run(
-        [
-            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", tmp, SOURCE,
-        ],
-        capture_output=True,
-        text=True,
-    )
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed:\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, lib)
-    return lib, res.stdout + res.stderr
+    return cuda_build.build_library(SOURCE, "libkazen_trace")
 
 
 @functools.lru_cache(maxsize=None)
@@ -417,16 +390,6 @@ def _library() -> ctypes.CDLL:
     lib.kz_error_string.argtypes = [i]
     lib.kz_error_string.restype = ctypes.c_char_p
     return lib
-
-
-class CudaKernel:
-    """One entry point of the trace library and its launch count: the
-    wrapper adds one each time it launches the kernel."""
-
-    def __init__(self, name: str, replaces: str):
-        self.name = name
-        self.replaces = replaces
-        self.launches = 0
 
 
 # both replace kazen_tpu/accel/cluster_trace.py:_make_kernel (line 696), the

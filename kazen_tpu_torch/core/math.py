@@ -87,6 +87,36 @@ def reflect(wi, n):
     return 2.0 * dot(wi, n, keepdims=True) * n - wi
 
 
+def refract(wi, n, eta):
+    """Snell refraction (common.cpp:522-532); 0 on total internal reflection.
+    The sqrt argument is substituted on TIR lanes before the sqrt, so the
+    backward pass stays finite there."""
+    cos_i = dot(wi, n)
+    eta_eff = torch.where(cos_i < 0.0, 1.0 / eta, eta)
+    cos_t2 = 1.0 - (1.0 - cos_i * cos_i) * (eta_eff * eta_eff)
+    sign = torch.where(cos_i >= 0.0, 1.0, -1.0)
+    ok = cos_t2 > 0.0
+    ct = torch.sqrt(torch.where(ok, cos_t2, 1.0))
+    wt = n * (-cos_i * eta_eff + sign * ct)[..., None] + wi * eta_eff[..., None]
+    return torch.where(ok[..., None], wt, 0.0)
+
+
+def fresnel(cos_theta_i, ext_ior, int_ior):
+    """Unpolarized dielectric Fresnel reflectance (common.cpp:447-476)."""
+    enter = cos_theta_i >= 0.0
+    eta_i = torch.where(enter, ext_ior, int_ior)
+    eta_t = torch.where(enter, int_ior, ext_ior)
+    ci = torch.abs(cos_theta_i)
+    eta = eta_i / eta_t
+    sin_t2 = eta * eta * (1.0 - ci * ci)
+    ok = sin_t2 < 1.0
+    ct = torch.sqrt(torch.where(ok, 1.0 - sin_t2, 1.0))  # TIR: see refract
+    rs = (eta_i * ci - eta_t * ct) / (eta_i * ci + eta_t * ct)
+    rp = (eta_t * ci - eta_i * ct) / (eta_t * ci + eta_i * ct)
+    f = torch.where(ok, 0.5 * (rs * rs + rp * rp), 1.0)
+    return torch.where(ext_ior == int_ior, 0.0, f)
+
+
 def to_srgb(c):
     return torch.where(
         c <= 0.0031308,

@@ -2,9 +2,11 @@
 loop over sample passes, the film accumulated in place.
 
 The port of ``kazen_tpu/integrate/render.py`` for the path_mis integrator on
-the full pixel grid (the lane-chunked pass and the megakernel are not ported
-yet). Each sample index gets its pcg32 jump from
-``advance_constants(s * 65536)``.
+the full pixel grid (the lane-chunked pass is not ported yet). A scene the
+compiler marked ``use_megakernel`` takes the megakernel
+(integrate/megakernel.py), every other scene the ordered wavefront
+(integrate/path_mis.py), as ``li_fn_for`` picks. Each sample index gets its
+pcg32 jump from ``advance_constants(s * 65536)``.
 """
 from __future__ import annotations
 
@@ -18,7 +20,14 @@ from ..film import film as film_mod
 from ..samplers import streams
 from ..samplers.streams import SamplerSpec
 from . import camera as camera_mod
+from .megakernel import li_megakernel
 from .path_mis import li_wavefront
+
+
+def li_fn_for(static):
+    """The path_mis Li of the scene: the megakernel where the compiler
+    enabled it, else the wavefront."""
+    return li_megakernel if static.use_megakernel else li_wavefront
 
 
 def sampler_spec(static) -> SamplerSpec:
@@ -46,7 +55,7 @@ def _render_pass(scene, static, spec, film, px, py, sample_index: int, jump):
     pixel_sample = torch.stack([px, py], -1).to(torch.float32) + jitter
     stream, aperture = streams.next_2d(spec, stream)
     rays = camera_mod.sample_ray(scene, static, pixel_sample, aperture)
-    _, li, nrays = li_wavefront(scene, static, spec, stream, rays)
+    _, li, nrays = li_fn_for(static)(scene, static, spec, stream, rays)
     return film_mod.splat_grid(static, film, jitter, li), nrays
 
 

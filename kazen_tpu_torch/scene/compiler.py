@@ -1,16 +1,21 @@
 """Scene compiler: lowers the scene description to flat tensors.
 
-The port of ``kazen_tpu/scene/compiler.py`` for the features of the first
-slice: inline meshes, diffuse and kiss materials with constant textures,
-area lights, a constant background, perspective and thinlens cameras, the
-path_mis integrator and the independent/stratified/correlated samplers.
-Anything else raises NotImplementedError naming the feature.
+The port of ``kazen_tpu/scene/compiler.py`` for the features ported so far:
+inline meshes; diffuse, lambertian, mirror, dielectric, GGX and kiss
+materials with constant textures; area lights, a constant background,
+perspective and thinlens cameras, the path_mis integrator and the
+independent/stratified/correlated samplers. Anything else raises
+NotImplementedError naming the feature.
 
 The result is ``(SceneArrays, SceneStatic)``: a dataclass of tensors on one
 device and a frozen dataclass of Python values. Cluster trace tables are
-always packed, whatever the scene's size, so every trace goes through the
-trace kernels on the card. ``scene_from_numpy`` builds the same pair from
-kazen_tpu's compiled scene converted to numpy.
+always packed, whatever the scene's size. A scene in the megakernel's class
+(integrate/megakernel.py:supported_reason: at most 128 faces, 16 materials
+and 64 light triangles, constant textures) also gets the megakernel's
+tables, and on CUDA ``use_megakernel``: render() then runs the whole path
+of a lane in one kernel, as the reference does on its accelerator.
+``scene_from_numpy`` builds the same pair from kazen_tpu's compiled scene
+converted to numpy.
 """
 from __future__ import annotations
 
@@ -102,6 +107,7 @@ class SceneArrays:
     aperture_radius: torch.Tensor  # ()
     focus_distance: torch.Tensor  # ()
     trace_tables: ct.ClusterTables
+    mega: Optional[object] = None  # integrate/megakernel.py:MegaTables
 
     @property
     def device(self) -> torch.device:
@@ -132,9 +138,13 @@ class SceneStatic:
     rfilter_b: float
     rfilter_c: float
     pixel_cone: float = 0.0
+    use_megakernel: bool = False  # render() takes integrate/megakernel.py
+    mega_cfg: Optional[Tuple] = None  # the megakernel's static config
 
 
-PORTED_BTYPES = (BSDF_DIFFUSE, BSDF_KISS)
+PORTED_BTYPES = (
+    BSDF_DIFFUSE, BSDF_DIELECTRIC, BSDF_MIRROR, BSDF_LAMBERTIAN, BSDF_GGX, BSDF_KISS,
+)
 
 
 def _constant(tex, what: str) -> np.ndarray:
@@ -163,6 +173,20 @@ def _material_row(b: Optional[D.BSDF]) -> dict:
         b = D.Diffuse()  # default material (mesh.cpp:25-28)
     if isinstance(b, D.Diffuse):
         row["base_color"] = np.asarray(b.albedo, np.float32)
+    elif isinstance(b, D.Dielectric):
+        row["btype"] = BSDF_DIELECTRIC
+        row["int_ior"] = b.int_ior
+        row["ext_ior"] = b.ext_ior
+    elif isinstance(b, D.Mirror):
+        row["btype"] = BSDF_MIRROR
+    elif isinstance(b, D.Lambertian):
+        row["btype"] = BSDF_LAMBERTIAN
+        row["base_color"] = _constant(b.albedo, "lambertian albedo")
+    elif isinstance(b, D.GGX):
+        row["btype"] = BSDF_GGX
+        row["base_color"] = _constant(b.albedo, "ggx albedo")
+        row["roughness"] = b.roughness
+        row["anisotropy"] = b.anisotropy
     elif isinstance(b, D.KazenStandard):
         row["btype"] = BSDF_KISS
         row["base_color"] = _constant(b.base_color, "kiss baseColor")
@@ -174,7 +198,7 @@ def _material_row(b: Optional[D.BSDF]) -> dict:
     else:
         raise NotImplementedError(
             f"BSDF {type(b).__name__} is not ported to kazen_tpu_torch yet "
-            "(diffuse and kiss only)"
+            "(diffuse, lambertian, mirror, dielectric, ggx and kiss only)"
         )
     return row
 
@@ -399,7 +423,7 @@ def _static_from_fields(fields: dict) -> SceneStatic:
     if bad:
         raise NotImplementedError(
             f"material types {bad} are not ported to kazen_tpu_torch yet "
-            "(diffuse and kiss only)"
+            "(diffuse, lambertian, mirror, dielectric, ggx and kiss only)"
         )
     names = {f.name for f in dataclasses.fields(SceneStatic)}
     return SceneStatic(
@@ -427,14 +451,22 @@ def _face_meta(arrays: dict, n_lights: int):
     )
 
 
-def scene_from_numpy(arrays: dict, static_fields: dict, device) -> "tuple[SceneArrays, SceneStatic]":
+def scene_from_numpy(
+    arrays: dict, static_fields: dict, device, megakernel: Optional[bool] = None,
+) -> "tuple[SceneArrays, SceneStatic]":
     """(SceneArrays, SceneStatic) on ``device`` from a compiled scene given as
     numpy: ``arrays`` holds SceneArrays' fields by name (``materials`` and
     ``trace_tables`` as dicts of arrays, bf16 already converted to f32; a
     missing or None ``trace_tables`` is packed here), ``static_fields``
     holds SceneStatic's fields. kazen_tpu's compiled scene converts to this
     form field by field, which is how the tests feed both packages one
-    scene."""
+    scene.
+
+    The megakernel's tables are packed here for a scene in its class.
+    ``megakernel`` picks the route render() takes for such a scene: None
+    takes the megakernel on CUDA and the wavefront on the CPU (the
+    reference's default off its accelerator), True and False force it. True
+    on a scene outside the class raises."""
     device = resolve_device(device)
     static = _static_from_fields(static_fields)
 
@@ -490,12 +522,32 @@ def scene_from_numpy(arrays: dict, static_fields: dict, device) -> "tuple[SceneA
         focus_distance=f32("focus_distance"),
         trace_tables=tables,
     )
-    return scene, static
+    return _with_megakernel(scene, static, megakernel)
 
 
-def compile_scene(scene: D.Scene, device="cuda") -> "tuple[SceneArrays, SceneStatic]":
+def _with_megakernel(scene: SceneArrays, static: SceneStatic, megakernel):
+    """Pack the megakernel's tables for a scene in its class and set
+    ``use_megakernel`` (see scene_from_numpy)."""
+    from ..integrate import megakernel as mk
+
+    ok, reason = mk.supported_reason(scene, static)
+    if not ok:
+        if megakernel:
+            raise ValueError(f"the scene is outside the megakernel's class: {reason}")
+        return scene, dataclasses.replace(static, use_megakernel=False, mega_cfg=None)
+    enable = scene.device.type == "cuda" if megakernel is None else bool(megakernel)
+    scene = dataclasses.replace(scene, mega=mk.pack_tables(scene, static))
+    return scene, dataclasses.replace(
+        static, use_megakernel=enable, mega_cfg=mk.cfg_key(scene, static)
+    )
+
+
+def compile_scene(
+    scene: D.Scene, device="cuda", megakernel: Optional[bool] = None,
+) -> "tuple[SceneArrays, SceneStatic]":
     """Compile a scene description onto ``device`` (CUDA unless the caller
-    asks for the CPU)."""
+    asks for the CPU). ``megakernel`` picks render()'s route for a scene in
+    the megakernel's class, as scene_from_numpy says."""
     device = resolve_device(device)
     arrays, static = compile_numpy(scene)
-    return scene_from_numpy(arrays, static, device)
+    return scene_from_numpy(arrays, static, device, megakernel)

@@ -151,8 +151,8 @@ def _with(desc, **changes):
 def test_unported_features_raise(case):
     desc = to_port(multi_cluster_scene(width=8, height=8))
     m0 = desc.meshes[0]
-    if case == "dielectric":
-        desc.meshes[0] = dataclasses.replace(m0, bsdf=DT.Dielectric())
+    if case == "dielectric":  # the smooth dielectric is ported, the rough one not yet
+        desc.meshes[0] = dataclasses.replace(m0, bsdf=DT.RoughDielectric())
     elif case == "image_texture":
         tex = DT.ImageTexture(data=np.ones((2, 2, 3), np.float32))
         desc.meshes[0] = dataclasses.replace(m0, bsdf=DT.KazenStandard(base_color=tex))

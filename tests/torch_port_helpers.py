@@ -14,7 +14,7 @@ from kazen_tpu_torch.scene import description as DT
 from kazen_tpu_torch.scene.compiler import compile_scene as compile_torch
 from kazen_tpu_torch.scene.compiler import scene_from_numpy
 
-from scenes import cornell_box, sphere_mesh
+from scenes import cornell_box, make_mesh, sphere_mesh
 
 KISS = dict(base_color=(0.6, 0.4, 0.8), metallic=0.3, roughness=0.3)
 KISS_COAT = dict(
@@ -66,12 +66,43 @@ def single_cluster_scene(width=20, height=20):
     return cornell_box(width=width, height=height, extra_meshes=extra)
 
 
+def mixed_scene(width=16, height=16, sampler="independent", spp=1):
+    """The megakernel's mixed-material scene: the Cornell box (primary-
+    invisible light) plus one quad each of kiss, mirror, GGX, dielectric
+    (where tests/test_megakernel.py puts them) and lambertian: 22 faces,
+    every BSDF branch of the megakernel. The quads face the camera (-z):
+    turned away, as in that test, the opaque ones shade to 0."""
+    extra = (
+        make_mesh(
+            [-0.8, 0.0, 0.6], [0, 0.6, 0], [0.6, 0, 0],
+            bsdf=DJ.KazenStandard(
+                base_color=(0.7, 0.3, 0.2), metallic=0.4, roughness=0.35,
+                clearcoat=0.6, sheen=0.4,
+            ),
+        ),
+        make_mesh([0.2, 0.0, 0.6], [0, 0.6, 0], [0.6, 0, 0], bsdf=DJ.Mirror()),
+        make_mesh(
+            [-0.8, 0.8, 0.6], [0, 0.6, 0], [0.6, 0, 0],
+            bsdf=DJ.GGX(albedo=(0.9, 0.7, 0.4), roughness=0.2),
+        ),
+        make_mesh([0.2, 0.8, 0.6], [0, 0.6, 0], [0.6, 0, 0], bsdf=DJ.Dielectric()),
+        make_mesh(
+            [-0.3, 1.3, 0.9], [0, 0.5, 0], [0.6, 0, 0],
+            bsdf=DJ.Lambertian(albedo=DJ.ConstantTexture((0.3, 0.6, 0.5))),
+        ),
+    )
+    return cornell_box(
+        width=width, height=height, spp=spp, sampler=sampler, extra_meshes=extra
+    )
+
+
 def compile_reference(desc):
     """kazen_tpu's compile with its cluster trace tables packed (the CPU
-    backend otherwise leaves them out); K1/K2 then run through its shim."""
+    backend otherwise leaves them out, and so does a scene of <= 64 faces);
+    K1/K2 then run through its shim, as the port always traces."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("KAZEN_PALLAS_TRACE", "1")
-        arrays, static = compile_jax(desc)
+        arrays, static = compile_jax(desc, use_bvh=True)
     assert arrays.trace_tables is not None
     return arrays, static
 
