@@ -12,18 +12,28 @@ Phases (each check raises; the script exits non-zero on the first failure):
 
 0. Build the CUDA trace kernels and the megakernel (nvcc, sm_90a, one
    library each) and the native BVH builder (g++) from the sources in the
-   checkout, in parallel; log each kernel's registers and spills.
+   checkout, in parallel; log each kernel's registers and spills (K1/K2's
+   serial and cooperative drains are one kernel, so one line serves both).
 1. K1/K2 against their plain PyTorch versions on the card, on the stand-in
    scene (Cornell box + a 36,864-triangle kiss sphere): 262,144 seeded
-   random rays and one 1920x1080 frame of camera rays.
+   random rays and one 1920x1080 frame of camera rays; and against their
+   plain walks on 65,536-lane slices of both (rows 0-36, any hit 0-3, equal
+   on >= 99.99% of lanes).
 2. One 1-spp depth-5 sample pass at 64x36, on the card through the kernels
    and on the CPU through the plain versions: per-lane radiance compared.
 3. The wavefront path: render() at 1920x1080, 1 spp, depth 5 -- one warm-up
    pass with every kernel's launch count set to 0 before it and read after
    it (K1 and K2 launched, K3 not), then three passes timed with CUDA events.
 4. K1/K2 replayed on the inputs they received in one pass (ms per launch),
-   held against their plain versions on the first and the third of them, the
-   plain version's time, and the kernel's bound.
+   held against their plain versions on the first and the third of them (and
+   the third's first 65,536 lanes against the plain walk), the plain
+   version's time, and the kernel's bound. On every launch: the SIMT
+   efficiency of leaves and of node steps (the mean per lane of the tests
+   and steps rows over the mean across warps of the warp's maximum), ms per
+   launch at each drain threshold min_idle of MIN_IDLE_SWEEP in turns, and
+   the count of lanes whose rows differ from min_idle 33 (every lane tests
+   its own leaves); then the stand-in pass with both kernels at min_idle
+   33 against the module constant, in turns.
 5. One pass of each path (stand-in, Mixed 1080p) under torch.profiler:
    device busy time and the kernels that take it (the full lists go to
    chiprun_out/).
@@ -63,7 +73,12 @@ WIDTH, HEIGHT, DEPTH = 1920, 1080, 5
 SPHERE_NU, SPHERE_NV = 192, 96
 SMALL_W, SMALL_H = 64, 36
 N_RANDOM = 262_144
+N_WALK = 65_536  # lanes held against the plain walk per ray set
 SEED = 7
+# drain thresholds timed in phase 4; 33 never drains cooperatively (every
+# lane tests its own leaves) and is the reference every other value is held to
+MIN_IDLE_SWEEP = (0, 4, 8, 16, 24, 33)
+SERIAL = 33
 
 # H100 SXM published peaks (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
@@ -315,6 +330,42 @@ def check_any_hit(torch, ct, tables, rays, label, phase=1):
     return err, agree
 
 
+def check_walk(torch, ct, tables, rays, label, phase=1, start=0):
+    """K1 and K2 against their plain walks on N_WALK lanes of ``rays`` from
+    ``start`` (K2 with maxt capped at 1.5): rows 0-36 of the nearest hit and
+    0-3 of the any hit equal on >= 99.99% of lanes. Returns the share of
+    lanes equal, the smaller of the two."""
+    sl = rays[:, start:start + N_WALK].contiguous()
+    short = sl.clone()
+    short[7] = torch.clamp(short[7], max=1.5)
+    shares = []
+    for name, kfn, wfn, x, rows in (
+        ("K1", ct.trace_cuda, ct.trace_walk_plain, sl, 37),
+        ("K2", ct.occluded_cuda, ct.occluded_walk_plain, short, 4),
+    ):
+        got, want = kfn(tables, x), wfn(tables, x)
+        torch.cuda.synchronize()
+        equal = (got[:rows] == want[:rows]).all(0)
+        share = equal.float().mean().item()
+        log(f"phase {phase}: {name} vs plain walk, {label}: N={x.shape[1]} rows 0-{rows - 1} "
+            f"equal on {share:.6f} of lanes ({int((~equal).sum().item())} differ), "
+            f"visits/steps/tests per lane {[round(v, 3) for v in want[rows - 3:rows].mean(1).tolist()]}")
+        if share < 0.9999:
+            raise AssertionError(f"{name} vs plain walk, {label}: {share:.6f} of lanes equal (< 0.9999)")
+        shares.append(share)
+    return min(shares)
+
+
+def simt_efficiency(torch, row) -> float:
+    """Mean per lane of a per-ray work count over the mean across warps (32
+    consecutive lanes) of the warp's maximum: the share of a warp's lane
+    slots that did work, when the warp runs as long as its busiest lane."""
+    x = row.double()
+    warps = torch.nn.functional.pad(x, (0, (-x.shape[0]) % 32)).view(-1, 32)
+    peak = warps.max(1).values.mean().item()
+    return x.mean().item() / peak if peak > 0 else 1.0
+
+
 def li_lanes(torch, scene, static):
     """Per-lane radiance of sample pass 0 (the render pass before the splat),
     through the route render() takes for the scene."""
@@ -436,6 +487,11 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas ({lib}): {line.strip()}")
+    spills = [line.strip() for line in nvcc_out["trace"].splitlines()
+              if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
+    log(f"phase 0: K1/K2 (serial and cooperative drain in one kernel each, min_idle a "
+        f"launch argument, {ct.COOP_MIN_IDLE} on the main path): "
+        + ("no spills" if not spills else f"SPILLS: {spills}"))
     log(f"phase 0: torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
     log(smi)  # the card's name and power limit, as nvidia-smi gives them
@@ -465,6 +521,11 @@ def main() -> int:
         "K1": (max(e1a, e1b), min(s1a, s1b)),
         "K2": (max(e2a, e2b), min(s2a, s2b)),
     }
+    walk_share = min(
+        check_walk(torch, ct, tables, rand, "random rays"),
+        check_walk(torch, ct, tables, frame, "camera frame (middle slice)",
+                   start=(frame.shape[1] - N_WALK) // 2),
+    )
     del rand, rand_short, frame, frame_short
     torch.cuda.synchronize()
 
@@ -542,13 +603,17 @@ def main() -> int:
     # the nearest hit (34-36 are diagnostics, 37-39 zeros) and row 0 of the
     # any hit (1-3 are diagnostics, 4-7 zeros)
     io_rows = {"K1": 8 + 34, "K2": 8 + 1}
-    test_row = {"K1": 36, "K2": 3}
+    diag_rows = {"K1": (35, 36), "K2": (2, 3)}  # node steps, triangle tests
+    sweep = sorted(set(MIN_IDLE_SWEEP) | {ct.COOP_MIN_IDLE})
     rows = []
     for name, (kfn, pfn) in fns.items():
         ms_each, bound_each, by_each, tests_total = [], [], [], 0.0
-        for rays_ in captured[name]:
-            out = kfn(tables, rays_)
-            tests = out[test_row[name]].double().sum().item()
+        simt_leaf, simt_step, differ = [], [], []
+        sweep_ms = {m: [] for m in sweep}
+        step_row, test_row = diag_rows[name]
+        for idx, rays_ in enumerate(captured[name]):
+            ref = kfn(tables, rays_, SERIAL)
+            tests = ref[test_row].double().sum().item()
             tests_total += tests
             nbytes = io_rows[name] * 4 * rays_.shape[1] + table_bytes[name]
             t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -556,6 +621,25 @@ def main() -> int:
             bound_each.append(max(t_bytes, t_ops))
             by_each.append("bytes" if t_bytes >= t_ops else "operations")
             ms_each.append(cuda_ms(torch, lambda: kfn(tables, rays_), 3))
+            simt_leaf.append(simt_efficiency(torch, ref[test_row]))
+            simt_step.append(simt_efficiency(torch, ref[step_row]))
+            # every drain threshold gives the serial drain's rows
+            n_differ = 0
+            for m in sweep:
+                same = (kfn(tables, rays_, m)[:test_row + 1] == ref[:test_row + 1]).all(0)
+                n_differ = max(n_differ, int((~same).sum().item()))
+            differ.append(n_differ)
+            if n_differ > 1e-5 * rays_.shape[1]:
+                raise AssertionError(f"phase 4: {name} launch {idx + 1}: {n_differ} lanes differ "
+                                     f"from min_idle {SERIAL} (> 0.001%)")
+            # ms per launch at each threshold, in turns (forward, then back)
+            for order in (sweep, sweep[::-1]):
+                for m in order:
+                    sweep_ms[m].append(cuda_ms(torch, lambda m=m: kfn(tables, rays_, m), 3))
+            log(f"phase 4: {name} launch {idx + 1}: N={rays_.shape[1]} SIMT efficiency leaves "
+                f"{simt_leaf[-1]:.4f} steps {simt_step[-1]:.4f}; ms by min_idle "
+                + ", ".join(f"{m}: {np.mean(sweep_ms[m][-2:]):.4f}" for m in sweep)
+                + f"; lanes differing from min_idle {SERIAL}: {n_differ} [{smi}]")
         # the kernel held against its plain version on the pass's first
         # launch (camera rays / first shadow rays) and its third (bounce
         # rays: surface origins, dead lanes, sorted order), which also warms
@@ -569,6 +653,7 @@ def main() -> int:
             )
             check[name] = (max(check[name][0], err), min(check[name][1], share))
         plain_ms = cuda_ms(torch, lambda: pfn(tables, first), 1)
+        by_min_idle = {str(m): float(np.mean(v)) for m, v in sweep_ms.items()}
         k = kernels[name]
         entry = {
             "name": k.name,
@@ -584,15 +669,50 @@ def main() -> int:
             "bound_by": max(set(by_each), key=by_each.count),
             "library_ms": None,
             "agreement": check[name][1],
+            "walk_agreement": walk_share,
+            "min_idle": ct.COOP_MIN_IDLE,
             "ms_per_launch": [round(x, 4) for x in ms_each],
+            "ms_by_min_idle": by_min_idle,
+            "ms_per_launch_serial": [
+                round(float(np.mean(sweep_ms[SERIAL][2 * i:2 * i + 2])), 4)
+                for i in range(len(ms_each))
+            ],
+            "simt_leaf": [round(x, 4) for x in simt_leaf],
+            "simt_step": [round(x, 4) for x in simt_step],
+            "lanes_differing": differ,
             "tests_per_pass": tests_total,
         }
         rows.append(entry)
-        log(f"phase 4: {name} {k.name}: {entry['ms']:.3f} ms per launch over "
-            f"{len(ms_each)} main-path launches ({entry['ms_per_launch']}), bound "
-            f"{entry['bound_ms']:.4f} ms by {entry['bound_by']}, plain version "
-            f"{plain_ms:.1f} ms on the first launch's rays (kernel {ms_each[0]:.3f} ms) "
-            f"[{smi}]")
+        log(f"phase 4: {name} {k.name}: {entry['ms']:.3f} ms per launch at min_idle "
+            f"{ct.COOP_MIN_IDLE} over {len(ms_each)} main-path launches "
+            f"({entry['ms_per_launch']}), bound {entry['bound_ms']:.4f} ms by "
+            f"{entry['bound_by']}, plain version {plain_ms:.1f} ms on the first launch's rays "
+            f"(kernel {ms_each[0]:.3f} ms) [{smi}]")
+        log(f"phase 4: {name} mean ms per launch by min_idle "
+            + ", ".join(f"{m}: {v:.4f}" for m, v in by_min_idle.items())
+            + f"; first launch at {ct.COOP_MIN_IDLE} / at {SERIAL}: "
+            f"{np.mean(sweep_ms[ct.COOP_MIN_IDLE][:2]) / np.mean(sweep_ms[SERIAL][:2]):.4f} [{smi}]")
+    check_walk(torch, ct, tables, captured["K1"][2], "main-path launch 3", phase=4)
+
+    # the stand-in pass with both kernels at the serial drain against the
+    # module constant, in turns (constant, serial, serial, constant)
+    def serial_pass():
+        ct.trace_cuda = lambda t, r: trace_cuda(t, r, SERIAL)
+        ct.occluded_cuda = lambda t, r: occluded_cuda(t, r, SERIAL)
+        try:
+            return cuda_ms(torch, lambda: render(scene, static, device="cuda"), 3)
+        finally:
+            ct.trace_cuda, ct.occluded_cuda = trace_cuda, occluded_cuda
+
+    def constant_pass():
+        return cuda_ms(torch, lambda: render(scene, static, device="cuda"), 3)
+
+    ab = {"constant": [constant_pass()], "serial": [serial_pass()]}
+    ab["serial"].append(serial_pass())
+    ab["constant"].append(constant_pass())
+    pass_ab = {k_: float(np.mean(v)) for k_, v in ab.items()}
+    log(f"phase 4: stand-in pass {pass_ab['constant']:.2f} ms at min_idle {ct.COOP_MIN_IDLE}, "
+        f"{pass_ab['serial']:.2f} ms at {SERIAL} (each the mean of 2 x 3 passes, in turns) [{smi}]")
     del captured
     torch.cuda.synchronize()
 
@@ -744,6 +864,7 @@ def main() -> int:
     })
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "pass_ms": pass_ms, "rays_per_pass": nrays_stand_in,
+                   "pass_ms_by_drain": pass_ab,
                    "megakernel_passes": passes, "kernels": rows, "profiles": profiles},
                   f, indent=1)
 

@@ -6,22 +6,28 @@ the reference, so face and cluster ids are identical); the collapsed cluster
 tree is stored as 8 per-direction-octant near-child-first preorders with
 escape links (``node_scalars``).
 
-Each query has two implementations with one contract:
+Each query has three implementations with one contract:
 
 * the CUDA kernels in ``csrc/cluster_trace.cu`` (one thread per ray walking
-  the node table of its octant, Möller-Trumbore on each visited cluster's
-  triangles in f32), launched for tensors on a CUDA device;
+  the node table of its octant, the warp draining the leaves its lanes
+  reach; Möller-Trumbore on each visited cluster's triangles in f32),
+  launched for tensors on a CUDA device;
 * plain PyTorch versions (a brute-force pass over clusters, the port of the
   reference's ``_run_shim``), used for tensors on the CPU and as the
-  kernels' reference on the card.
+  kernels' reference on the card;
+* plain walks (``trace_walk_plain``, ``occluded_walk_plain``): the kernels'
+  walk over the octant node tables written as a masked PyTorch loop, with
+  the kernels' diagnostic rows. They hold the walk and the escape links to
+  the brute force and to the JAX package on the CPU, and the kernels to
+  their walk on the card; ``render()`` never calls them.
 
 ``trace`` returns the 40-row matrix the shade prep decodes
 (shade/interaction.py:prepare_from_rows):
 
     0 t, 1 u, 2 v, 3 face, 4:28 shade24 [p0 p1 p2 n0 n1 n2 uv0 uv1 uv2],
     28 light, 29 lpv, 30 material, 31 has_n, 32 has_uv, 33 winner cluster,
-    34 visits, 35 node steps, 36 triangle tests (kernel diagnostics; 0 in the
-    plain version and never compared), 37:40 zero.
+    34 visits, 35 node steps, 36 triangle tests (diagnostics of the kernel
+    and the plain walk; 0 in the brute-force version), 37:40 zero.
 
 ``occluded`` ignores faces of primary-invisible lights (they never block),
 the single-pass analog of the reference's step-through re-casts
@@ -329,23 +335,26 @@ def trace_plain(tables: ClusterTables, rays: torch.Tensor) -> torch.Tensor:
             tbest = torch.where(improved, gmin, tbest)
             cbest = torch.where(improved, c0 + idx // K, cbest)
             kbest = torch.where(improved, idx % K, kbest)
-        shade = tables.geo_shade[cbest, :, kbest]  # (R, 32)
-        no_hit = tbest >= t0
-        shade = torch.where(no_hit[:, None], _miss_shade(rays.device), shade)
-        face = shade[:, _S_FACE]
-        valid = face >= 0.0
-        tt, uu, vv, _ = moller_trumbore(
-            o, d, shade[:, 0:3], shade[:, 3:6], shade[:, 6:9]
-        )
-        blk = out[:, s:e]
-        blk[0] = torch.where(valid, tt, BIG)
-        blk[1] = torch.where(valid, uu, 0.0)
-        blk[2] = torch.where(valid, vv, 0.0)
-        blk[3] = face
-        blk[4:28] = shade[:, 0:24].T
-        blk[28:33] = shade[:, _S_LIGHT:_S_HASUV + 1].T
-        blk[33] = torch.where(valid, cbest.to(torch.float32), 0.0)
+        _winner_rows(out[:, s:e], tables, o, d, ~(tbest >= t0), cbest, kbest)
     return out
+
+
+def _winner_rows(blk, tables, o, d, hit, cbest, kbest) -> None:
+    """Rows 0-33 of the nearest hit into ``blk`` (40, R): the winner's
+    attributes (the miss sentinel where ``hit`` is False) and its exact
+    (t, u, v) recompute."""
+    shade = tables.geo_shade[cbest.clamp(min=0), :, kbest]  # (R, 32)
+    shade = torch.where(hit[:, None], shade, _miss_shade(o.device))
+    face = shade[:, _S_FACE]
+    valid = face >= 0.0
+    tt, uu, vv, _ = moller_trumbore(o, d, shade[:, 0:3], shade[:, 3:6], shade[:, 6:9])
+    blk[0] = torch.where(valid, tt, BIG)
+    blk[1] = torch.where(valid, uu, 0.0)
+    blk[2] = torch.where(valid, vv, 0.0)
+    blk[3] = face
+    blk[4:28] = shade[:, 0:24].T
+    blk[28:33] = shade[:, _S_LIGHT:_S_HASUV + 1].T
+    blk[33] = torch.where(valid, cbest.to(torch.float32), 0.0)
 
 
 def occluded_plain(tables: ClusterTables, rays: torch.Tensor) -> torch.Tensor:
@@ -369,6 +378,125 @@ def occluded_plain(tables: ClusterTables, rays: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Plain walks: the kernels' traversal, one node per lane per step
+# ---------------------------------------------------------------------------
+
+_LEAF_LANES = 8192  # lanes whose clusters one leaf step tests at a time
+
+
+def _walk(tables: ClusterTables, rays: torch.Tensor, tmax, leaf):
+    """Walk every live lane (maxt >= 0) through its octant's stackless
+    preorder as the kernels do: each step loads one node, slab-tests it
+    against ``tmax`` (read anew each step) and follows c+1 into an entered
+    inner node, else the escape link. ``leaf(lanes, cid, count)`` tests the
+    entered clusters and returns (tests per lane, lanes that are done).
+    Returns the per-lane (visits, steps, tests) as int64."""
+    n = rays.shape[1]
+    dev = rays.device
+    o, d, mint = rays[0:3].T, rays[3:6].T, rays[6]
+    inv = 1.0 / torch.where(d.abs() < 1e-20, 1e-20, d)
+    n_nodes = tables.node_scalars.shape[1]
+    nodes = tables.node_scalars.reshape(-1, NODE_F)
+    octant = (d[:, 0] > 0) * 4 + (d[:, 1] > 0) * 2 + (d[:, 2] > 0) * 1
+    base = octant.long() * n_nodes
+    c = torch.where(rays[7] >= 0.0, 0, n_nodes).long()
+    visits, steps, tests = (torch.zeros(n, dtype=torch.int64, device=dev) for _ in range(3))
+    while True:
+        live = (c < n_nodes).nonzero()[:, 0]
+        if live.numel() == 0:
+            return visits, steps, tests
+        rec = nodes[base[live] + c[live]]
+        steps[live] += 1
+        t0 = (rec[:, 0:3] - o[live]) * inv[live]
+        t1 = (rec[:, 3:6] - o[live]) * inv[live]
+        tnear = torch.minimum(t0, t1).amax(1)
+        tfar = torch.maximum(t0, t1).amin(1)
+        hit = (tnear <= tfar) & (tfar >= mint[live]) & (tnear <= tmax[live])
+        count = rec[:, 7].long()
+        c[live] = torch.where(hit & (count == 0), c[live] + 1, rec[:, 6].long())
+        entered = hit & (count > 0)
+        lanes = live[entered]
+        visits[lanes] += 1
+        cid, cnt = rec[entered, 8].long(), count[entered]
+        for s in range(0, lanes.numel(), _LEAF_LANES):
+            sl = slice(s, s + _LEAF_LANES)
+            n_tests, done = leaf(lanes[sl], cid[sl], cnt[sl])
+            tests[lanes[sl]] += n_tests
+            c[lanes[sl][done]] = n_nodes
+
+
+def _leaf_tests(tables, rays, lanes, cid, count):
+    """(ok, t, records) of lanes x the <= 128 triangles of their clusters,
+    k < count, inside each ray's [mint, maxt]."""
+    rec = tables.tri[cid]  # (R, K, 12)
+    t, _, _, ok = moller_trumbore_edges(
+        rays[0:3, lanes].T[:, None, :], rays[3:6, lanes].T[:, None, :],
+        rec[..., 0:3], rec[..., 3:6], rec[..., 6:9],
+    )
+    k = torch.arange(K, device=rays.device)
+    ok = ok & (k[None] < count[:, None])
+    ok = ok & (t >= rays[6, lanes, None]) & (t <= rays[7, lanes, None])
+    return ok, t, rec
+
+
+def trace_walk_plain(tables: ClusterTables, rays: torch.Tensor) -> torch.Tensor:
+    """Nearest hit by the kernels' walk: rays (8, N) -> (40, N) rows, the
+    diagnostics (visits, node steps, triangle tests) in rows 34-36. A leaf
+    keeps the lexicographically least (t, k) below the lane's tbest, as the
+    kernel's strict '<' over k does."""
+    n = rays.shape[1]
+    dev = rays.device
+    tbest = torch.clamp(rays[7], max=BIG).clone()
+    cbest = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    kbest = torch.zeros(n, dtype=torch.int64, device=dev)
+
+    def leaf(lanes, cid, count):
+        ok, t, _ = _leaf_tests(tables, rays, lanes, cid, count)
+        tt = torch.where(ok, t, float("inf"))
+        k = torch.argmin(tt, dim=1)  # the first of equal minima: the least k
+        tmin = tt.gather(1, k[:, None])[:, 0]
+        better = tmin < tbest[lanes]
+        won = lanes[better]
+        tbest[won] = tmin[better]
+        cbest[won] = cid[better]
+        kbest[won] = k[better]
+        return count, torch.zeros_like(better)
+
+    visits, steps, tests = _walk(tables, rays, tbest, leaf)
+    out = torch.zeros((OUT_ROWS, n), dtype=torch.float32, device=dev)
+    _winner_rows(out, tables, rays[0:3].T, rays[3:6].T, cbest >= 0, cbest, kbest)
+    out[34:37] = torch.stack([visits, steps, tests]).to(torch.float32)
+    return out
+
+
+def occluded_walk_plain(tables: ClusterTables, rays: torch.Tensor) -> torch.Tensor:
+    """Any hit by the kernels' walk: rays (8, N) -> (8, N) rows, row 0
+    blocked, rows 1-3 visits, node steps and triangle tests. A leaf counts
+    the triangles that can block up to and including its first blocker in k
+    order, as the kernel's loop does before it stops."""
+    n = rays.shape[1]
+    dev = rays.device
+    blocked = torch.zeros(n, dtype=torch.bool, device=dev)
+
+    def leaf(lanes, cid, count):
+        ok, _, rec = _leaf_tests(tables, rays, lanes, cid, count)
+        k = torch.arange(K, device=dev)
+        can_block = (rec[..., 9] != 0.0) & (k[None] < count[:, None])
+        hits = ok & can_block
+        hit_any = hits.any(1)
+        first = torch.where(hit_any, hits.to(torch.int8).argmax(1), K)
+        n_tests = (can_block & (k[None] <= first[:, None])).sum(1)
+        blocked[lanes[hit_any]] = True
+        return n_tests, hit_any
+
+    visits, steps, tests = _walk(tables, rays, rays[7], leaf)
+    out = torch.zeros((ANY_ROWS, n), dtype=torch.float32, device=dev)
+    out[0] = blocked.to(torch.float32)
+    out[1:4] = torch.stack([visits, steps, tests]).to(torch.float32)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
 
@@ -383,9 +511,9 @@ def build_library() -> "tuple[str, str]":
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build_library()[0])
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.kz_trace_nearest.argtypes = [p, p, i, p, p, p, i, p]
+    lib.kz_trace_nearest.argtypes = [p, p, i, p, p, p, i, i, p]
     lib.kz_trace_nearest.restype = i
-    lib.kz_trace_any_hit.argtypes = [p, p, i, p, p, i, p]
+    lib.kz_trace_any_hit.argtypes = [p, p, i, p, p, i, i, p]
     lib.kz_trace_any_hit.restype = i
     lib.kz_error_string.argtypes = [i]
     lib.kz_error_string.restype = ctypes.c_char_p
@@ -396,6 +524,14 @@ def _library() -> ctypes.CDLL:
 # nearest hit with any_hit=False and the any hit with any_hit=True
 NEAREST = CudaKernel("cluster_trace_nearest", "kazen_tpu/accel/cluster_trace.py:696")
 ANY_HIT = CudaKernel("cluster_trace_any_hit", "kazen_tpu/accel/cluster_trace.py:696")
+
+# A drain round of the kernels runs cooperatively (the warp tests one pending
+# lane's cluster at a time) when at least this many of the warp's 32 lanes
+# hold no pending leaf; otherwise each pending lane tests its own cluster.
+# 33 never drains cooperatively, 0 always does. Chosen by the sweep of
+# chip_smoke.py's phase 4 on the main path's launches (PERF.md): the
+# smallest value no slower than 33 on any launch of the stand-in pass.
+COOP_MIN_IDLE = 8
 
 
 def _check_inputs(tables: ClusterTables, rays: torch.Tensor) -> None:
@@ -425,8 +561,11 @@ def _raise_on(code: int, kernel: CudaKernel) -> None:
         raise RuntimeError(f"{kernel.name} launch failed: {msg} ({code})")
 
 
-def trace_cuda(tables: ClusterTables, rays: torch.Tensor) -> torch.Tensor:
-    """Nearest-hit kernel: rays (8, N) on a CUDA device -> (40, N) rows."""
+def trace_cuda(tables: ClusterTables, rays: torch.Tensor,
+               min_idle: int = COOP_MIN_IDLE) -> torch.Tensor:
+    """Nearest-hit kernel: rays (8, N) on a CUDA device -> (40, N) rows.
+    ``min_idle`` is the kernel's drain threshold (``COOP_MIN_IDLE``); the
+    rows do not depend on it."""
     _check_inputs(tables, rays)
     n = rays.shape[1]
     out = torch.empty((OUT_ROWS, n), dtype=torch.float32, device=rays.device)
@@ -439,15 +578,17 @@ def trace_cuda(tables: ClusterTables, rays: torch.Tensor) -> torch.Tensor:
         code = lib.kz_trace_nearest(
             rays.data_ptr(), tables.node_scalars.data_ptr(), n_nodes,
             tables.tri.data_ptr(), tables.geo_shade.data_ptr(), out.data_ptr(),
-            n, stream,
+            n, min_idle, stream,
         )
     NEAREST.launches += 1
     _raise_on(code, NEAREST)
     return out
 
 
-def occluded_cuda(tables: ClusterTables, rays: torch.Tensor) -> torch.Tensor:
-    """Any-hit kernel: rays (8, N) on a CUDA device -> (8, N) rows."""
+def occluded_cuda(tables: ClusterTables, rays: torch.Tensor,
+                  min_idle: int = COOP_MIN_IDLE) -> torch.Tensor:
+    """Any-hit kernel: rays (8, N) on a CUDA device -> (8, N) rows; ``min_idle``
+    as for ``trace_cuda``."""
     _check_inputs(tables, rays)
     n = rays.shape[1]
     out = torch.empty((ANY_ROWS, n), dtype=torch.float32, device=rays.device)
@@ -459,7 +600,7 @@ def occluded_cuda(tables: ClusterTables, rays: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(rays.device).cuda_stream
         code = lib.kz_trace_any_hit(
             rays.data_ptr(), tables.node_scalars.data_ptr(), n_nodes,
-            tables.tri.data_ptr(), out.data_ptr(), n, stream,
+            tables.tri.data_ptr(), out.data_ptr(), n, min_idle, stream,
         )
     ANY_HIT.launches += 1
     _raise_on(code, ANY_HIT)

@@ -2,33 +2,67 @@
 //
 // Replaces the Pallas kernels of kazen_tpu/accel/cluster_trace.py:_make_kernel
 // (any_hit=False behind `trace`, any_hit=True behind `occluded`). Same output
-// contract; the inner design is the card's, not the TPU's:
+// contract; the inner design is the card's, not the TPU's.
 //
-// * One thread per ray, 128 threads a block, ragged edge masked (no padding
-//   to 1024-ray packets). Each ray walks the node table of its own direction
-//   octant, 4*(dx>0) + 2*(dy>0) + (dz>0), a near-child-first preorder with
-//   escape links: nxt = (box hit && !leaf) ? c+1 : skip. No stack.
-// * A visited cluster's <= 128 triangles are tested one by one in plain f32
-//   with the Moller-Trumbore formula of accel/intersect.py, from a compact
-//   (C, 128, 12) record table [p0 | e1 | e2 | blocks]. The TPU kernel's
-//   split-bf16 MXU product, SMEM/VMEM node variants, windowed bitmask walk
-//   and DMA double buffers have no counterpart here.
-// * Nearest hit keeps (tbest, cluster, k), improving only on strict '<';
-//   the winner's 32 attribute rows are read once at the end and its
-//   (t, u, v) recomputed exactly as the reference's _write_nearest_out does.
-//   Output is written column-per-thread into (40, N), coalesced.
-// * Any hit stops at the first accepted triangle that can block (faces of
-//   primary-invisible lights never do) and writes row 0 of (8, N).
+// The walk. One thread per ray, 128 threads a block, ragged edge masked (no
+// padding to 1024-ray packets). Each ray walks the node table of its own
+// direction octant, 4*(dx>0) + 2*(dy>0) + (dz>0), a near-child-first
+// preorder with escape links: nxt = (box hit && !leaf) ? c+1 : skip. No
+// stack. The loop is Aila and Laine's "while-while" (Understanding the
+// Efficiency of Ray Traversal on GPUs, HPG 2009): each lane walks until it
+// holds a leaf to test or is done, then the warp drains the pending leaves.
 //
-// What bounds it: ray/hit I/O is 192 bytes a ray for the nearest hit, while
-// a ray runs thousands of triangle tests of ~45 flops; the kernel is bound
-// by f32 arithmetic and by the latency of divergent, dependent loads in the
-// walk, not by device-memory bytes. The node and triangle tables are small
-// (a few MB for a 37k-face scene) and stay in L2/L1; rays of a warp that are
-// coherent (camera rays, or bounce rays after the wavefront's sort) read the
-// same records, which the read-only path broadcasts. Rows 34-36 (any hit:
-// 1-3) count visits, node steps and triangle tests per ray, the data for
-// the kernel's operation bound.
+// The drain. `min_idle` chooses between two ways, per drain round:
+// * fewer than `min_idle` of the warp's 32 lanes idle (no pending leaf):
+//   each pending lane tests its own cluster's <= 128 triangles one by one.
+//   On a coherent warp (camera rays) the lanes read the same records and
+//   the read-only path broadcasts them;
+// * at least `min_idle` lanes idle: the warp serves the pending lanes one
+//   by one. For lane L, lane j tests triangles j, j+32, j+64, j+96 of L's
+//   cluster against L's ray (broadcast with shuffles), so each warp load
+//   covers one contiguous 1.5 KB span and a visit reads its records once.
+//   A serial loop costs the warp the longest lane's visit; a divergent
+//   bounce warp, where one lane grazes a dense mesh, otherwise keeps 31
+//   lanes idle through each of that lane's 128-triangle loops.
+// min_idle = 33 never drains cooperatively (one serial loop per lane);
+// min_idle = 0 always does. Every value gives the same rows:
+// * nearest hit: each lane keeps its best (t, k) with a strict '<' over its
+//   increasing k, the warp takes the lexicographic minimum of (t, k), and L
+//   accepts it only below its tbest -- exactly what the serial loop's strict
+//   '<' over k = 0..count-1 keeps;
+// * any hit: the warp takes the first blocker in k order, and row 3 counts
+//   the triangles that can block up to and including it, as the serial loop
+//   counts them before it breaks.
+// Lanes past the end and dead lanes (maxt < 0) stay in the loop as helpers
+// until their warp ends: the warp intrinsics need every lane of the mask.
+//
+// Per triangle, Moller-Trumbore (accel/intersect.py) in f32 from a compact
+// (C, 128, 12) record table [p0 | e1 | e2 | blocks]. One `mt_test` serves
+// both drains and is written in round-to-nearest steps the compiler may not
+// fuse into FMAs, in the plain version's order of operations, so a (ray,
+// triangle) pair gives the same t wherever it is tested, here and in the
+// plain walk (accel/cluster_trace.py:trace_walk_plain). The nearest hit
+// reads the winner's 32 attribute rows once at the end and recomputes its
+// (t, u, v) exactly as the reference's _write_nearest_out does; output is
+// written column-per-thread into (40, N), coalesced. The any hit stops at
+// the first accepted triangle that can block (faces of primary-invisible
+// lights never do) and writes row 0 of (8, N).
+//
+// What bounds it, and what Hopper offers. The ray/hit I/O is 192 bytes a
+// ray for the nearest hit; the triangle tests of a pass are few (< 100 a
+// ray on average), so the bound is by bytes, yet the kernel runs far above
+// it: warps wait on divergent lanes and dependent loads, not on arithmetic
+// or device memory. Hence the levers are warp-level primitives and
+// coalescing. The tables fit the 50 MB L2 (the 36,876-face stand-in:
+// 419 x 128 x 48 B = 2.6 MB of triangle records, 6.9 MB of shade rows).
+// Within a visit no record is read twice, so staging a cluster in shared
+// memory, or through TMA, buys nothing; tensor cores would break the f32
+// contract rows 0-33 are held to bit for bit, which is also why the TPU
+// kernel's split-bf16 MXU product is not carried over. Staging an octant's
+// node table in shared memory (837 x 64 B = 54 KB for the stand-in) is the
+// lever left for the walk itself. Rows 34-36 (any hit: 1-3) count visits,
+// node steps and triangle tests per ray, the data for the kernel's
+// operation bound and for the SIMT efficiency of its warps.
 #include <cuda_runtime.h>
 
 namespace {
@@ -40,19 +74,25 @@ constexpr int ANY_ROWS = 8;
 constexpr int TRI_F = 12;
 constexpr int NODE_F = 16;
 constexpr int THREADS = 128;
+constexpr int WARP = 32;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr unsigned NONE = 0xffffffffu;
 constexpr float BIG = 3.0e38f;
 constexpr float DET_EPS = 1e-8f;
 constexpr int S_FACE = 24;
 constexpr int S_LIGHT = 25;
 
-struct Ray {
+struct Seg {
   float ox, oy, oz, dx, dy, dz, mint, maxt;
+};
+
+struct Ray : Seg {
   float ix, iy, iz;  // reciprocal direction for the slab test
 };
 
 __device__ __forceinline__ float safe_inv(float c) {
   // the reference's 1 / where(|d| < 1e-20, 1e-20, d)
-  return 1.0f / (fabsf(c) < 1e-20f ? 1e-20f : c);
+  return __fdiv_rn(1.0f, fabsf(c) < 1e-20f ? 1e-20f : c);
 }
 
 __device__ __forceinline__ Ray load_ray(const float* __restrict__ rays, int n,
@@ -72,11 +112,29 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ rays, int n,
   return r;
 }
 
+// lane L's segment, broadcast to the warp
+__device__ __forceinline__ Seg shfl_seg(const Seg& s, int L) {
+  Seg q;
+  q.ox = __shfl_sync(FULL, s.ox, L);
+  q.oy = __shfl_sync(FULL, s.oy, L);
+  q.oz = __shfl_sync(FULL, s.oz, L);
+  q.dx = __shfl_sync(FULL, s.dx, L);
+  q.dy = __shfl_sync(FULL, s.dy, L);
+  q.dz = __shfl_sync(FULL, s.dz, L);
+  q.mint = __shfl_sync(FULL, s.mint, L);
+  q.maxt = __shfl_sync(FULL, s.maxt, L);
+  return q;
+}
+
 __device__ __forceinline__ const float* octant_nodes(
     const float* __restrict__ nodes, int n_nodes, const Ray& r) {
   const int oct =
       (r.dx > 0.0f ? 4 : 0) + (r.dy > 0.0f ? 2 : 0) + (r.dz > 0.0f ? 1 : 0);
   return nodes + (size_t)oct * n_nodes * NODE_F;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
 }
 
 // Slab test of node record (a, b) = [bmin3 bmax.x], [bmax.yz skip count]
@@ -93,31 +151,6 @@ __device__ __forceinline__ bool slab(const float4& a, const float4& b,
   return tnear <= tfar && tfar >= r.mint && tnear <= tmax;
 }
 
-// Moller-Trumbore against record [p0 | e1 | e2 | ...] (accel/intersect.py);
-// true with t set when the hit lies inside the triangle and [mint, maxt].
-__device__ __forceinline__ bool mt_test(const float4& a, const float4& b,
-                                        const float4& c, const Ray& r,
-                                        float& t) {
-  const float e1x = a.w, e1y = b.x, e1z = b.y;
-  const float e2x = b.z, e2y = b.w, e2z = c.x;
-  const float pvx = r.dy * e2z - r.dz * e2y;
-  const float pvy = r.dz * e2x - r.dx * e2z;
-  const float pvz = r.dx * e2y - r.dy * e2x;
-  const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-  if (!(fabsf(det) > DET_EPS)) return false;
-  const float inv_det = 1.0f / det;
-  const float tvx = r.ox - a.x, tvy = r.oy - a.y, tvz = r.oz - a.z;
-  const float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
-  if (!(u >= 0.0f && u <= 1.0f)) return false;
-  const float qvx = tvy * e1z - tvz * e1y;
-  const float qvy = tvz * e1x - tvx * e1z;
-  const float qvz = tvx * e1y - tvy * e1x;
-  const float v = (r.dx * qvx + r.dy * qvy + r.dz * qvz) * inv_det;
-  if (!(v >= 0.0f && u + v <= 1.0f)) return false;
-  t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
-  return t >= r.mint && t <= r.maxt;
-}
-
 // a*b - c*d and a.b without FMA contraction (the __f*_rn intrinsics are
 // never fused)
 __device__ __forceinline__ float cross_rn(float a, float b, float c, float d) {
@@ -130,8 +163,188 @@ __device__ __forceinline__ float dot_rn(float ax, float ay, float az, float bx,
                    __fmul_rn(az, bz));
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
+// Moller-Trumbore against record [p0 | e1 | e2 | ...] in the operations and
+// order of accel/intersect.py:moller_trumbore_edges; true with t set when the
+// hit lies inside the triangle and [mint, maxt].
+__device__ __forceinline__ bool mt_test(const float4& a, const float4& b,
+                                        const float4& c, const Seg& r,
+                                        float& t) {
+  const float e1x = a.w, e1y = b.x, e1z = b.y;
+  const float e2x = b.z, e2y = b.w, e2z = c.x;
+  const float pvx = cross_rn(r.dy, e2z, r.dz, e2y);
+  const float pvy = cross_rn(r.dz, e2x, r.dx, e2z);
+  const float pvz = cross_rn(r.dx, e2y, r.dy, e2x);
+  const float det = dot_rn(e1x, e1y, e1z, pvx, pvy, pvz);
+  if (!(fabsf(det) > DET_EPS)) return false;
+  const float inv_det = __fdiv_rn(1.0f, det);
+  const float tvx = __fsub_rn(r.ox, a.x), tvy = __fsub_rn(r.oy, a.y),
+              tvz = __fsub_rn(r.oz, a.z);
+  const float u = __fmul_rn(dot_rn(tvx, tvy, tvz, pvx, pvy, pvz), inv_det);
+  if (!(u >= 0.0f && u <= 1.0f)) return false;
+  const float qvx = cross_rn(tvy, e1z, tvz, e1y);
+  const float qvy = cross_rn(tvz, e1x, tvx, e1z);
+  const float qvz = cross_rn(tvx, e1y, tvy, e1x);
+  const float v = __fmul_rn(dot_rn(r.dx, r.dy, r.dz, qvx, qvy, qvz), inv_det);
+  if (!(v >= 0.0f && __fadd_rn(u, v) <= 1.0f)) return false;
+  t = __fmul_rn(dot_rn(e2x, e2y, e2z, qvx, qvy, qvz), inv_det);
+  return t >= r.mint && t <= r.maxt;
+}
+
+// One step of the lane's walk at node c: true, with the cluster and its
+// triangle count, when the ray enters a leaf's box.
+__device__ __forceinline__ bool walk_step(const float* __restrict__ nb,
+                                          const Ray& r, float tmax, int& c,
+                                          int& steps, int& cid, int& count) {
+  const float* node = nb + (size_t)c * NODE_F;
+  const float4 a = ld4(node), b = ld4(node + 4);
+  ++steps;
+  const bool hit = slab(a, b, r, tmax);
+  const int cnt = (int)b.w;
+  c = (hit && cnt == 0) ? c + 1 : (int)b.z;
+  if (!(hit && cnt > 0)) return false;
+  cid = (int)__ldg(node + 8);
+  count = cnt;
+  return true;
+}
+
+// The while-while schedule, one node step per lane per iteration so that
+// every ballot sits in warp-uniform control flow: a lane that holds no leaf
+// and is not done takes a step; while any lane still walks, the warp walks
+// on; then the lanes holding a leaf are the pending set of a drain round.
+// (A per-lane inner walk loop lets the compiler fold it into the outer loop
+// and issue the ballot without reconverging the warp.)
+__device__ __forceinline__ unsigned next_round(const float* __restrict__ nb,
+                                               int n_nodes, const Ray& r,
+                                               float tmax, int& c, int& steps,
+                                               int& cid, int& count) {
+  bool holding = false;
+  for (;;) {
+    const bool walking = !holding && c < n_nodes;
+    if (__ballot_sync(FULL, walking) == 0u) return __ballot_sync(FULL, holding);
+    if (walking) holding = walk_step(nb, r, tmax, c, steps, cid, count);
+  }
+}
+
+// Whether this drain round runs cooperatively: at least min_idle of the
+// warp's lanes hold no pending leaf.
+__device__ __forceinline__ bool cooperative(unsigned pending, int min_idle) {
+  return WARP - __popc(pending) >= min_idle;
+}
+
+// f32 -> u32 with the same order (no NaNs reach it; -0 counts as +0, as '<'
+// does)
+__device__ __forceinline__ unsigned order_key(float t) {
+  const unsigned u = __float_as_uint(t == 0.0f ? 0.0f : t);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ void serial_nearest(const float* __restrict__ tri,
+                                               int cid, int count, const Ray& r,
+                                               float& tbest, int& cbest,
+                                               int& kbest) {
+  const float* rec = tri + (size_t)cid * K * TRI_F;
+  for (int k = 0; k < count; ++k) {
+    const float* p = rec + k * TRI_F;
+    float t;
+    if (mt_test(ld4(p), ld4(p + 4), ld4(p + 8), r, t) && t < tbest) {
+      tbest = t;
+      cbest = cid;
+      kbest = k;
+    }
+  }
+}
+
+// The warp tests lane L's cluster against L's ray; L keeps the winner.
+__device__ __forceinline__ void coop_nearest(const float* __restrict__ tri,
+                                             int L, int lane, int cid,
+                                             int count, const Ray& r,
+                                             float& tbest, int& cbest,
+                                             int& kbest) {
+  const Seg q = shfl_seg(r, L);
+  const int qc = __shfl_sync(FULL, cid, L);
+  const int qn = __shfl_sync(FULL, count, L);
+  const float* rec = tri + (size_t)qc * K * TRI_F;
+  float bt = __int_as_float(0x7f800000);  // +inf
+  unsigned bk = NONE;
+#pragma unroll
+  for (int j = 0; j < K / WARP; ++j) {
+    const int k = lane + j * WARP;
+    if (k < qn) {
+      const float* p = rec + k * TRI_F;
+      float t;
+      if (mt_test(ld4(p), ld4(p + 4), ld4(p + 8), q, t) && t < bt) {
+        bt = t;
+        bk = k;
+      }
+    }
+  }
+  const unsigned key = order_key(bt);
+  const unsigned kmin = __reduce_min_sync(FULL, key);
+  const unsigned kwin = __reduce_min_sync(FULL, key == kmin ? bk : NONE);
+  const float twin = __shfl_sync(FULL, bt, (int)(kwin & (WARP - 1)));
+  if (lane == L && kwin != NONE && twin < tbest) {
+    tbest = twin;
+    cbest = qc;
+    kbest = (int)kwin;
+  }
+}
+
+// true when a triangle that can block is hit; tests counts those tested
+__device__ __forceinline__ bool serial_any(const float* __restrict__ tri,
+                                           int cid, int count, const Ray& r,
+                                           int& tests) {
+  const float* rec = tri + (size_t)cid * K * TRI_F;
+  for (int k = 0; k < count; ++k) {
+    const float* p = rec + k * TRI_F;
+    const float4 cc = ld4(p + 8);
+    if (cc.y == 0.0f) continue;  // cannot block
+    ++tests;
+    float t;
+    if (mt_test(ld4(p), ld4(p + 4), cc, r, t)) return true;
+  }
+  return false;
+}
+
+// The warp tests lane L's cluster against L's ray for a blocker; L counts
+// the triangles the serial loop would have tested and keeps the answer.
+__device__ __forceinline__ void coop_any(const float* __restrict__ tri, int L,
+                                         int lane, int cid, int count,
+                                         const Ray& r, bool& blocked,
+                                         int& tests) {
+  const Seg q = shfl_seg(r, L);
+  const int qc = __shfl_sync(FULL, cid, L);
+  const int qn = __shfl_sync(FULL, count, L);
+  const float* rec = tri + (size_t)qc * K * TRI_F;
+  // bit j of can[s] / hit[s]: triangle 32 s + j can block / blocks
+  unsigned can[K / WARP], hit[K / WARP];
+#pragma unroll
+  for (int s = 0; s < K / WARP; ++s) {
+    const int k = lane + s * WARP;
+    bool c = false, h = false;
+    if (k < qn) {
+      const float* p = rec + k * TRI_F;
+      const float4 cc = ld4(p + 8);
+      c = cc.y != 0.0f;
+      float t;
+      h = c && mt_test(ld4(p), ld4(p + 4), cc, q, t);
+    }
+    can[s] = __ballot_sync(FULL, c);
+    hit[s] = __ballot_sync(FULL, h);
+  }
+  // the first blocker in k order, and the triangles that can block up to it
+  bool found = false;
+  int n_tested = 0;
+#pragma unroll
+  for (int s = 0; s < K / WARP; ++s) {
+    if (found) continue;
+    const unsigned upto = hit[s] ? (hit[s] ^ (hit[s] - 1u)) : FULL;
+    n_tested += __popc(can[s] & upto);
+    found = hit[s] != 0u;
+  }
+  if (lane == L) {
+    tests += n_tested;
+    blocked = found;
+  }
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -139,41 +352,38 @@ __global__ void __launch_bounds__(THREADS)
                    const float* __restrict__ nodes, int n_nodes,
                    const float* __restrict__ tri,
                    const float* __restrict__ shade, float* __restrict__ out,
-                   int n) {
+                   int n, int min_idle) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray r = load_ray(rays, n, i);
+  const int lane = threadIdx.x & (WARP - 1);
+  const bool active = i < n;
+  const Ray r = load_ray(rays, n, active ? i : n - 1);
   const float* nb = octant_nodes(nodes, n_nodes, r);
 
   float tbest = fminf(r.maxt, BIG);
   int cbest = -1, kbest = 0;
   int visits = 0, steps = 0, tests = 0;
-  if (r.maxt >= 0.0f) {
-    int c = 0;  // the root's escape link is the table's end
-    while (c < n_nodes) {
-      const float* node = nb + (size_t)c * NODE_F;
-      const float4 a = ld4(node), b = ld4(node + 4);
-      ++steps;
-      const bool hit = slab(a, b, r, tbest);
-      const int count = (int)b.w;
-      if (hit && count > 0) {
-        const int cid = (int)__ldg(node + 8);
-        const float* rec = tri + (size_t)cid * K * TRI_F;
-        ++visits;
-        tests += count;
-        for (int k = 0; k < count; ++k) {
-          const float* p = rec + k * TRI_F;
-          float t;
-          if (mt_test(ld4(p), ld4(p + 4), ld4(p + 8), r, t) && t < tbest) {
-            tbest = t;
-            cbest = cid;
-            kbest = k;
-          }
-        }
+  // the root's escape link is the table's end; idle lanes start there
+  int c = (active && r.maxt >= 0.0f) ? 0 : n_nodes;
+  for (;;) {
+    int cid = 0, count = 0;
+    const unsigned pending =
+        next_round(nb, n_nodes, r, tbest, c, steps, cid, count);
+    if (pending == 0u) break;
+    const bool mine = (pending >> lane) & 1u;
+    if (mine) {
+      ++visits;
+      tests += count;
+    }
+    if (cooperative(pending, min_idle)) {
+      for (unsigned m = pending; m != 0u; m &= m - 1u) {
+        coop_nearest(tri, __ffs(m) - 1, lane, cid, count, r, tbest, cbest,
+                     kbest);
       }
-      c = (hit && count == 0) ? c + 1 : (int)b.z;
+    } else if (mine) {
+      serial_nearest(tri, cid, count, r, tbest, cbest, kbest);
     }
   }
+  if (!active) return;
 
   // winner attributes (or the miss sentinel: face = light = -1 and a benign
   // unit triangle in rows 3, 7, 11, 14, 17)
@@ -231,40 +441,33 @@ __global__ void __launch_bounds__(THREADS)
     any_hit_kernel(const float* __restrict__ rays,
                    const float* __restrict__ nodes, int n_nodes,
                    const float* __restrict__ tri, float* __restrict__ out,
-                   int n) {
+                   int n, int min_idle) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray r = load_ray(rays, n, i);
+  const int lane = threadIdx.x & (WARP - 1);
+  const bool active = i < n;
+  const Ray r = load_ray(rays, n, active ? i : n - 1);
   const float* nb = octant_nodes(nodes, n_nodes, r);
 
   bool blocked = false;
   int visits = 0, steps = 0, tests = 0;
-  if (r.maxt >= 0.0f) {
-    int c = 0;
-    while (c < n_nodes && !blocked) {
-      const float* node = nb + (size_t)c * NODE_F;
-      const float4 a = ld4(node), b = ld4(node + 4);
-      ++steps;
-      const bool hit = slab(a, b, r, r.maxt);
-      const int count = (int)b.w;
-      if (hit && count > 0) {
-        const float* rec = tri + (size_t)__ldg(node + 8) * K * TRI_F;
-        ++visits;
-        for (int k = 0; k < count; ++k) {
-          const float* p = rec + k * TRI_F;
-          const float4 cc = ld4(p + 8);
-          if (cc.y == 0.0f) continue;  // cannot block
-          ++tests;
-          float t;
-          if (mt_test(ld4(p), ld4(p + 4), cc, r, t)) {
-            blocked = true;
-            break;
-          }
-        }
+  int c = (active && r.maxt >= 0.0f) ? 0 : n_nodes;
+  for (;;) {
+    int cid = 0, count = 0;
+    const unsigned pending =
+        next_round(nb, n_nodes, r, r.maxt, c, steps, cid, count);
+    if (pending == 0u) break;
+    const bool mine = (pending >> lane) & 1u;
+    if (mine) ++visits;
+    if (cooperative(pending, min_idle)) {
+      for (unsigned m = pending; m != 0u; m &= m - 1u) {
+        coop_any(tri, __ffs(m) - 1, lane, cid, count, r, blocked, tests);
       }
-      c = (hit && count == 0) ? c + 1 : (int)b.z;
+    } else if (mine) {
+      blocked = serial_any(tri, cid, count, r, tests);
     }
+    if (blocked) c = n_nodes;  // done: the first blocker ends the walk
   }
+  if (!active) return;
   float* o = out + i;
   const size_t st = (size_t)n;
   o[0] = blocked ? 1.0f : 0.0f;
@@ -283,23 +486,25 @@ extern "C" {
 
 // rays (8, n) [o3 d3 mint maxt]; nodes (8, n_nodes, 16), one table per
 // direction octant; tri (C, 128, 12); shade (C, 32, 128); out (40, n).
+// min_idle: a drain round runs cooperatively when at least this many of a
+// warp's lanes hold no pending leaf (33: never, 0: always).
 // Returns cudaGetLastError() after the launch (0 = launched).
 int kz_trace_nearest(const float* rays, const float* nodes, int n_nodes,
                      const float* tri, const float* shade, float* out, int n,
-                     cudaStream_t stream) {
+                     int min_idle, cudaStream_t stream) {
   if (n <= 0) return 0;
   nearest_kernel<<<blocks_for(n), THREADS, 0, stream>>>(
-      rays, nodes, n_nodes, tri, shade, out, n);
+      rays, nodes, n_nodes, tri, shade, out, n, min_idle);
   return (int)cudaGetLastError();
 }
 
 // out (8, n): row 0 blocked, rows 1-3 visits / node steps / triangle tests.
 int kz_trace_any_hit(const float* rays, const float* nodes, int n_nodes,
-                     const float* tri, float* out, int n,
+                     const float* tri, float* out, int n, int min_idle,
                      cudaStream_t stream) {
   if (n <= 0) return 0;
   any_hit_kernel<<<blocks_for(n), THREADS, 0, stream>>>(
-      rays, nodes, n_nodes, tri, out, n);
+      rays, nodes, n_nodes, tri, out, n, min_idle);
   return (int)cudaGetLastError();
 }
 
