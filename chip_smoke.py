@@ -13,7 +13,9 @@ Phases (each check raises; the script exits non-zero on the first failure):
 0. Build the CUDA trace kernels and the megakernel (nvcc, sm_90a, one
    library each) and the native BVH builder (g++) from the sources in the
    checkout, in parallel; log each kernel's registers and spills (K1/K2's
-   serial and cooperative drains are one kernel, so one line serves both).
+   serial and cooperative drains are one kernel, so one line serves both;
+   K3's for each instance __launch_bounds__(128, B), B in
+   MIN_BLOCKS_CHOICES).
 1. K1/K2 against their plain PyTorch versions on the card, on the stand-in
    scene (Cornell box + a 36,864-triangle kiss sphere): 262,144 seeded
    random rays and one 1920x1080 frame of camera rays; and against their
@@ -39,14 +41,21 @@ Phases (each check raises; the script exits non-zero on the first failure):
    chiprun_out/).
 6. K3 against its plain version on the card: the Mixed 1080p sample-0 camera
    rays and streams; at 64x36 the stratified and correlated samplers, and
-   regularization with a background, with and without lights.
+   regularization with a background, with and without lights. Rows 0-5 must
+   be equal on every lane, for both schedules (refill 0 and 1); the count
+   of lanes that differ is printed, and the radiance gate is applied too.
 7. K3 against the port's li_wavefront on the card, on the same inputs.
 8. The megakernel path at 64x36 on the card against the same path on the
    CPU (the plain version).
 9. The megakernel path: render() at 1920x1080 on Mixed and on Toy -- launch
    counts set to 0 before a warm-up pass and read after it (K3 once, K1/K2
    never), the image checked, three passes timed with CUDA events; then K3
-   replayed on the input of Mixed's launch (ms per launch, bound).
+   replayed on the input of the pass's launch: ms per launch and bound at
+   the wrapper's constants, then every schedule (refill 0, 1) x instance B
+   in turns, with each one's registers, local bytes, resident blocks and
+   lane-slot efficiency (the threads that held a path over 32 x the warps'
+   iterations), the one-lane-a-thread figure from row 5, and a check that the
+   totals of rows 4 and 5 are equal across all of them.
 
 Every comparison of radiance holds PERF.md's gate: per-lane radiance within
 rtol 1e-3 / atol 1e-4 on >= 99% of lanes, channel means within 0.5% and ray
@@ -60,6 +69,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -83,6 +93,9 @@ SERIAL = 33
 # H100 SXM published peaks (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# K3 is built with -fmad=false: no product and sum issue as one FMA, so its
+# reachable f32 rate is half the peak's (which counts an FMA as two)
+PEAK_F32_UNFUSED = PEAK_F32_FLOPS / 2
 # flops of one Moller-Trumbore test as accel/intersect.py writes it:
 # 2 cross products (9 each), 4 dot products (5 each), 3 subtractions,
 # 1 division, 3 scalings by 1/det
@@ -298,10 +311,10 @@ def camera_rays(torch, scene, static, spec, sample=0):
 def check_nearest(torch, ct, tables, rays, label, phase=1):
     """K1 vs its plain version: same face on >= 99% of lanes, rows 0-33
     within rtol 1e-4 / atol 1e-4 there (tests/test_cluster_trace.py's
-    limits for the TPU kernel). Returns (max abs err, same-face share)."""
+    limits for the TPU kernel). Returns (max abs err, same-face share, ms of
+    the plain version's call)."""
     rk = ct.trace_cuda(tables, rays)
-    rp = ct.trace_plain(tables, rays)
-    torch.cuda.synchronize()
+    rp, plain_ms = timed(torch, lambda: ct.trace_plain(tables, rays))
     same = rk[3] == rp[3]
     share = same.float().mean().item()
     if share < 0.99:
@@ -313,21 +326,21 @@ def check_nearest(torch, ct, tables, rays, label, phase=1):
     err = (a - b).abs().max().item()
     log(f"phase {phase}: K1 {label}: N={rays.shape[1]} same face {share:.6f}, "
         f"rows 0-33 max abs err {err:.3g}, hit share {(rk[3] >= 0).float().mean().item():.4f}")
-    return err, share
+    return err, share, plain_ms
 
 
 def check_any_hit(torch, ct, tables, rays, label, phase=1):
-    """K2 vs its plain version: agreement on >= 99.9% of lanes."""
+    """K2 vs its plain version: agreement on >= 99.9% of lanes. Returns (max
+    abs err, agreement, ms of the plain version's call)."""
     ok = ct.occluded_cuda(tables, rays)[0]
-    op = ct.occluded_plain(tables, rays)[0]
-    torch.cuda.synchronize()
+    op, plain_ms = timed(torch, lambda: ct.occluded_plain(tables, rays)[0])
     agree = (ok == op).float().mean().item()
     if agree < 0.999:
         raise AssertionError(f"K2 {label}: agreement {agree:.6f} (< 0.999)")
     err = (ok - op).abs().max().item()
     log(f"phase {phase}: K2 {label}: N={rays.shape[1]} agreement {agree:.6f}, "
         f"blocked share {ok.mean().item():.4f}")
-    return err, agree
+    return err, agree, plain_ms
 
 
 def check_walk(torch, ct, tables, rays, label, phase=1, start=0):
@@ -364,6 +377,29 @@ def simt_efficiency(torch, row) -> float:
     warps = torch.nn.functional.pad(x, (0, (-x.shape[0]) % 32)).view(-1, 32)
     peak = warps.max(1).values.mean().item()
     return x.mean().item() / peak if peak > 0 else 1.0
+
+
+def k3_registers(ptxas: str) -> dict:
+    """{B: (registers, spill-store bytes)} of K3's instances from ptxas's
+    report, the most over the sampler instances (empty when nothing was
+    compiled)."""
+    found, cur = {}, None
+    for line in ptxas.splitlines():
+        m = re.search(r"megakernelILi(\d)ELi(\d)E", line)
+        if "Compiling entry" in line:
+            cur = int(m.group(2)) if m else None
+            continue
+        if cur is None:
+            continue
+        regs, spill = found.get(cur, (0, 0))
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = max(spill, int(m.group(1)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            regs = max(regs, int(m.group(1)))
+        found[cur] = (regs, spill)
+    return found
 
 
 def li_lanes(torch, scene, static):
@@ -412,6 +448,44 @@ def check_li(torch, got, want, label, phase):
     if rel_rays > 0.001:
         raise AssertionError(f"phase {phase}: {label}: ray totals differ by {rel_rays:.4g}")
     return err, share
+
+
+def k3_variants(torch, mk, sc, st, o, d, stream, ref, label, smi):
+    """K3 on one launch's input under every schedule (refill 0, 1) x
+    instance B: ms per launch (mean of 5, in turns: forward, then back),
+    registers, local bytes and resident blocks, lane-slot efficiency, and
+    rows 4-5 totals, which must equal those of ``ref`` (the wrapper's own
+    launch on the same input)."""
+    keys = [(r, b) for r in (0, 1) for b in mk.MIN_BLOCKS_CHOICES]
+    totals = (ref[4].double().sum().item(), ref[5].double().sum().item())
+    res = {}
+    for refill, b in keys:
+        slots = torch.zeros(2, dtype=torch.int64, device=o.device)
+        out = mk.megakernel_cuda(sc.mega, st.mega_cfg, o, d, stream, refill, b, slots)
+        got = (out[4].double().sum().item(), out[5].double().sum().item())
+        if got != totals:
+            raise AssertionError(f"phase 9: {label} refill {refill} B={b}: rows 4-5 totals {got} "
+                                 f"!= {totals}")
+        iters, live = slots.tolist()
+        res[(refill, b)] = dict(mk.kernel_info(sc.mega, st.mega_cfg, b),
+                                lane_slot_efficiency=live / iters, ms=[])
+    for order in (keys, keys[::-1]):
+        for refill, b in order:
+            res[(refill, b)]["ms"].append(cuda_ms(torch, lambda: mk.megakernel_cuda(
+                sc.mega, st.mega_cfg, o, d, stream, refill, b), 5))
+    out = {}
+    for (refill, b), v in res.items():
+        v["ms_turns"] = v["ms"]
+        v["ms"] = float(np.mean(v["ms"]))
+        out[f"refill {refill} B={b}"] = v
+        log(f"phase 9: {label} K3 refill {refill} B={b}: {v['ms']:.4f} ms per launch "
+            f"({v['ms_turns'][0]:.4f}, {v['ms_turns'][1]:.4f}), {v['regs']} registers, "
+            f"{v['local_bytes']} local bytes, {v['blocks_per_sm']} blocks per SM, lane-slot "
+            f"efficiency {v['lane_slot_efficiency']:.4f} [{smi}]")
+    log(f"phase 9: {label} rows 4-5 totals equal across all {len(keys)} variants: "
+        f"{totals[0]:.0f} tests, {totals[1]:.0f} bounces; row 5's SIMT efficiency (the lane-slot "
+        f"figure of one lane a thread) {simt_efficiency(torch, ref[5]):.4f}")
+    return out
 
 
 def profile_pass(torch, fn, out_dir, name, top=15):
@@ -483,15 +557,18 @@ def main() -> int:
     smi = nvidia_smi_line()
     log(f"phase 0: built the trace kernels, the megakernel and the BVH builder in "
         f"{build_s:.1f} s")
-    for lib, text in nvcc_out.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                log(f"  ptxas ({lib}): {line.strip()}")
+    for line in nvcc_out["trace"].splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            log(f"  ptxas (trace): {line.strip()}")
     spills = [line.strip() for line in nvcc_out["trace"].splitlines()
               if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
     log(f"phase 0: K1/K2 (serial and cooperative drain in one kernel each, min_idle a "
         f"launch argument, {ct.COOP_MIN_IDLE} on the main path): "
         + ("no spills" if not spills else f"SPILLS: {spills}"))
+    k3_ptxas = k3_registers(nvcc_out["megakernel"])
+    for b, (regs, spill) in sorted(k3_ptxas.items()):
+        log(f"phase 0: K3 instance B={b}: {regs} registers, {spill} bytes of spill stores "
+            f"(the most over the three samplers)")
     log(f"phase 0: torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
     log(smi)  # the card's name and power limit, as nvidia-smi gives them
@@ -513,10 +590,10 @@ def main() -> int:
     _, cam = camera_rays(torch, scene, static, spec)
     frame = ct.pack_rays(cam.o, cam.d, cam.mint, cam.maxt)
     frame_short = ct.pack_rays(cam.o, cam.d, cam.mint, torch.full_like(cam.maxt, 3.0))
-    e1a, s1a = check_nearest(torch, ct, tables, rand, "random rays")
-    e1b, s1b = check_nearest(torch, ct, tables, frame, "camera frame")
-    e2a, s2a = check_any_hit(torch, ct, tables, rand_short, "random rays, maxt 1.5")
-    e2b, s2b = check_any_hit(torch, ct, tables, frame_short, "camera frame, maxt 3")
+    e1a, s1a, _ = check_nearest(torch, ct, tables, rand, "random rays")
+    e1b, s1b, _ = check_nearest(torch, ct, tables, frame, "camera frame")
+    e2a, s2a, _ = check_any_hit(torch, ct, tables, rand_short, "random rays, maxt 1.5")
+    e2b, s2b, _ = check_any_hit(torch, ct, tables, frame_short, "camera frame, maxt 3")
     check = {
         "K1": (max(e1a, e1b), min(s1a, s1b)),
         "K2": (max(e2a, e2b), min(s2a, s2b)),
@@ -593,7 +670,7 @@ def main() -> int:
     finally:
         ct.trace_cuda, ct.occluded_cuda = trace_cuda, occluded_cuda
     torch.cuda.synchronize()
-    fns = {"K1": (trace_cuda, ct.trace_plain), "K2": (occluded_cuda, ct.occluded_plain)}
+    fns = {"K1": trace_cuda, "K2": occluded_cuda}
     pass_launches = {name: launches[name] for name in fns}
     table_bytes = {
         "K1": sum(t.numel() * 4 for t in (tables.node_scalars, tables.tri, tables.geo_shade)),
@@ -606,7 +683,7 @@ def main() -> int:
     diag_rows = {"K1": (35, 36), "K2": (2, 3)}  # node steps, triangle tests
     sweep = sorted(set(MIN_IDLE_SWEEP) | {ct.COOP_MIN_IDLE})
     rows = []
-    for name, (kfn, pfn) in fns.items():
+    for name, kfn in fns.items():
         ms_each, bound_each, by_each, tests_total = [], [], [], 0.0
         simt_leaf, simt_step, differ = [], [], []
         sweep_ms = {m: [] for m in sweep}
@@ -641,18 +718,18 @@ def main() -> int:
                 + ", ".join(f"{m}: {np.mean(sweep_ms[m][-2:]):.4f}" for m in sweep)
                 + f"; lanes differing from min_idle {SERIAL}: {n_differ} [{smi}]")
         # the kernel held against its plain version on the pass's first
-        # launch (camera rays / first shadow rays) and its third (bounce
-        # rays: surface origins, dead lanes, sorted order), which also warms
-        # the plain version up for its timing on the first launch's rays
-        first = captured[name][0]
+        # launch (camera rays / first shadow rays), whose plain call gives
+        # the plain version's time (phase 1 warmed it up), and its third
+        # (bounce rays: surface origins, dead lanes, sorted order)
         check_fn = check_nearest if name == "K1" else check_any_hit
         for idx in (0, 2):
-            err, share = check_fn(
+            err, share, p_ms = check_fn(
                 torch, ct, tables, captured[name][idx], f"main-path launch {idx + 1}",
                 phase=4,
             )
             check[name] = (max(check[name][0], err), min(check[name][1], share))
-        plain_ms = cuda_ms(torch, lambda: pfn(tables, first), 1)
+            if idx == 0:
+                plain_ms = p_ms
         by_min_idle = {str(m): float(np.mean(v)) for m, v in sweep_ms.items()}
         k = kernels[name]
         entry = {
@@ -764,6 +841,18 @@ def main() -> int:
             torch, lambda: mk.megakernel_plain(sc.mega, st.mega_cfg, rays_.o, rays_.d, stream_)
         )
         k3_out[label] = (out_k, out_p, p_ms)
+        # rows 0-5 equal on every lane, for both schedules
+        for refill in (0, 1):
+            out_r = mk.megakernel_cuda(
+                sc.mega, st.mega_cfg, rays_.o, rays_.d, stream_, refill=refill
+            )
+            differ = int((out_r != out_p).any(0).sum().item())
+            by_row = [int((out_r[r] != out_p[r]).sum().item()) for r in range(mk.OUT_ROWS)]
+            log(f"phase 6: K3 refill {refill} vs plain, {label}: rows 0-5 differ on {differ} "
+                f"of {out_p.shape[1]} lanes (by row {by_row})")
+            if differ:
+                raise AssertionError(f"phase 6: K3 refill {refill}, {label}: {differ} lanes differ "
+                                     f"from the plain version")
         err, share = check_li(torch, li_of(out_k), li_of(out_p), f"K3 vs plain, {label}", 6)
         k3_err, k3_share = max(k3_err, err), min(k3_share, share)
         log(f"phase 6: plain version {p_ms:.1f} ms on {label}")
@@ -830,21 +919,26 @@ def main() -> int:
         )
         t_bytes = (K3_IO_BYTES * o_.shape[0] + table_bytes) / PEAK_BYTES_PER_S * 1e3
         t_ops = (tests * MT_FLOPS + bounces * SHADE_FLOPS) / PEAK_F32_FLOPS * 1e3
+        variants = k3_variants(torch, mk, sc, st, o_, d_, stream__, out, label, smi)
         passes[label] = dict(
             pass_ms=ms_, warm_ms=warm_s * 1e3, image_mean=mean, rays=nrays,
             launches=counts["K3"], k3_ms=k_ms, tests=tests, bounces=bounces,
             bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
             bound_bytes_ms=t_bytes, bound_ops_ms=t_ops,
+            bound_unfused_ms=max(t_bytes, t_ops * PEAK_F32_FLOPS / PEAK_F32_UNFUSED),
+            row5_simt=simt_efficiency(torch, out[5]), variants=variants,
         )
         log(f"phase 9: {label} 1920x1080 1-spp depth-{st.max_depth} pass {ms_:.3f} ms (mean of "
             f"3, CUDA events), {nrays / ms_ * 1e3:.4g} rays/s, "
             f"{WIDTH * HEIGHT / ms_ * 1e3:.4g} pixel-samples/s, image mean {mean:.5f} [{smi}]")
-        log(f"phase 9: {label} K3 {k_ms:.3f} ms per launch (mean of 5), {tests:.4g} triangle "
-            f"tests, {bounces:.4g} bounces, {nrays:.0f} rays; bound {max(t_bytes, t_ops):.4f} ms "
-            f"(bytes {t_bytes:.4f}, operations {t_ops:.4f}) [{smi}]")
+        log(f"phase 9: {label} K3 {k_ms:.3f} ms per launch (mean of 5) at refill {mk.REFILL}, "
+            f"B={mk.MIN_BLOCKS}, {tests:.0f} triangle tests, {bounces:.0f} bounces, {nrays:.0f} "
+            f"rays; bound {max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, operations "
+            f"{t_ops:.4f}; {passes[label]['bound_unfused_ms']:.4f} at the unfused rate) [{smi}]")
         save_png(os.path.join(out_dir, f"chip_smoke_{label.lower()}_1080p.png"), img.cpu())
 
     mixed_run = passes["Mixed"]
+    chosen = mixed_run["variants"][f"refill {mk.REFILL} B={mk.MIN_BLOCKS}"]
     rows.append({
         "name": mk.MEGAKERNEL.name,
         "route": "cuda",
@@ -861,10 +955,18 @@ def main() -> int:
         "toy_ms": passes["Toy"]["k3_ms"],
         "tests_per_pass": mixed_run["tests"],
         "bounces_per_pass": mixed_run["bounces"],
+        "regs": chosen["regs"],
+        "lane_slot_efficiency": chosen["lane_slot_efficiency"],
+        "row5_simt_efficiency": mixed_run["row5_simt"],
+        "bound_unfused_ms": mixed_run["bound_unfused_ms"],
+        "refill": mk.REFILL,
+        "min_blocks": mk.MIN_BLOCKS,
+        "ms_by_variant": {k_: v["ms"] for k_, v in mixed_run["variants"].items()},
+        "toy_ms_by_variant": {k_: v["ms"] for k_, v in passes["Toy"]["variants"].items()},
     })
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "pass_ms": pass_ms, "rays_per_pass": nrays_stand_in,
-                   "pass_ms_by_drain": pass_ab,
+                   "pass_ms_by_drain": pass_ab, "k3_ptxas": k3_ptxas,
                    "megakernel_passes": passes, "kernels": rows, "profiles": profiles},
                   f, indent=1)
 

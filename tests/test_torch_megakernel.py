@@ -242,15 +242,62 @@ def test_wrapper_routes_by_device(mixed_port):
     out = mk_t.megakernel(scene.mega, static.mega_cfg, rays.o, rays.d, st)
     assert out.shape == (mk_t.OUT_ROWS, rays.o.shape[0])
     assert mk_t.MEGAKERNEL.launches == before
-    assert (out[4:] == 0).all() and (out[3] >= 1).all()
+    cfg = dict(static.mega_cfg)
+    assert (out[3] >= 1).all() and (out[4] >= cfg["F"]).all()
+    assert (out[5] >= 0).all() and (out[5] <= cfg["max_depth"]).all()
     with pytest.raises(ValueError, match="CUDA"):
         mk_t.megakernel_cuda(scene.mega, static.mega_cfg, rays.o, rays.d, st)
 
 
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_counts_work(case):
+    """Rows 4 and 5 of the plain version at 16x16: F tests per nearest-hit
+    trace and at most F per shadow ray (F x (rays - bounces) <= tests <= F x
+    (rays + 1), the punch-through re-cast being the one trace that is not a
+    ray), exactly F x rays without lights; 0 <= bounces <= max_depth, 0
+    exactly where the camera ray missed."""
+    make, sample = CASES[case]
+    scene, static = compile_port(make(16, 16))
+    _, st, rays = _lanes_port(scene, static, sample)
+    cfg = dict(static.mega_cfg)
+    F = cfg["F"]
+    out = mk_t.megakernel_plain(scene.mega, cfg, rays.o, rays.d, st).double()
+    nrays, tests, bounces = out[3], out[4], out[5]
+    assert torch.equal(tests, tests.round()) and torch.equal(bounces, bounces.round())
+    assert (F * (nrays - bounces) <= tests).all() and (tests <= F * (nrays + 1)).all()
+    if cfg["L"] == 0:
+        assert torch.equal(tests, F * nrays)
+    else:
+        assert (tests > F * (nrays - bounces)).any()  # shadow rays were counted
+    assert (bounces >= 0).all() and (bounces <= cfg["max_depth"]).all()
+    found = mk_t._trace(scene.mega, tuple(rays.o.unbind(-1)), tuple(rays.d.unbind(-1)), mk_t.EPS)[
+        "found"
+    ]
+    assert torch.equal(bounces == 0, ~found) and bool(found.any())
+
+
+def test_plain_shadow_tests_stop_at_first_blocker():
+    """_occluded counts the faces that can block, in face order, up to and
+    including the first that blocks: all of them on a free ray."""
+    scene, static = compile_port(cornell_box(width=4, height=4))
+    tables = scene.mega
+    g = tables.geo
+    can_block = ~((g[:, 10] >= 0.0) & (g[:, 11] == 0.0))
+    # from the box's middle: straight down to the floor, and a ray with no
+    # room to reach anything
+    o = (torch.tensor([0.0, 0.0]), torch.tensor([1.0, 1.0]), torch.tensor([0.0, 0.0]))
+    d = (torch.tensor([0.0, 0.0]), torch.tensor([-1.0, -1.0]), torch.tensor([0.0, 0.0]))
+    blocked, tests = mk_t._occluded(tables, o, d, 1e-4, torch.tensor([5.0, 0.5]))
+    t, _, _, ok = mk_t._face_test(tables, o, d)
+    first = int(torch.nonzero(ok[0] & (t[0] >= 1e-4) & can_block)[0])
+    assert blocked.tolist() == [True, False]
+    assert tests.tolist() == [int(can_block[: first + 1].sum()), int(can_block.sum())]
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
-    """K3 against its plain version on the card: every case at 32x32, same
-    limits."""
+    """K3 against its plain version on the card, every case at 32x32, both
+    schedules: rows 0-5 equal on every lane."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the megakernel has no CPU mode")
     for make, sample in CASES.values():
@@ -259,12 +306,11 @@ def test_kernel_matches_plain_on_card():
         _, st, rays = _lanes_port(scene, static, sample)
         st = type(st)(*(f.contiguous() for f in st))
         o, d = rays.o.contiguous(), rays.d.contiguous()
-        before = mk_t.MEGAKERNEL.launches
-        k = mk_t.megakernel_cuda(scene.mega, static.mega_cfg, o, d, st)
         p = mk_t.megakernel_plain(scene.mega, static.mega_cfg, o, d, st)
-        torch.cuda.synchronize()
-        assert mk_t.MEGAKERNEL.launches == before + 1
-        _assert_li_close(
-            k[0:3].T.cpu().numpy(), p[0:3].T.cpu().numpy(),
-            float(k[3].sum()), float(p[3].sum()), 1.5,
-        )
+        for refill in (0, 1):
+            before = mk_t.MEGAKERNEL.launches
+            k = mk_t.megakernel_cuda(scene.mega, static.mega_cfg, o, d, st, refill=refill)
+            torch.cuda.synchronize()
+            assert mk_t.MEGAKERNEL.launches == before + 1
+            differ = int((k != p).any(0).sum())
+            assert differ == 0, f"refill {refill}: {differ} lanes differ"
