@@ -6,7 +6,10 @@ Two paths of render() are driven: the ordered wavefront with the trace
 kernels K1/K2 on the stand-in scene (36,876 faces), and the megakernel K3 on
 scenes of at most 128 faces (Mixed 1080p: the Cornell box with kiss, mirror,
 GGX, dielectric and lambertian quads, 22 faces, depth 5; Toy 1080p: the
-12-triangle diffuse/kiss box, depth 4).
+12-triangle diffuse/kiss box, depth 4). On the wavefront's kernels run also
+the staged driver, the pmj02bn sampler, the four debug integrators and
+Textured 1080p (the stand-in with image textures, a normal map, the rough*
+models and an importance-sampled sky).
 
 Phases (each check raises; the script exits non-zero on the first failure):
 
@@ -57,6 +60,27 @@ Phases (each check raises; the script exits non-zero on the first failure):
    iterations), the one-lane-a-thread figure from row 5, and a check that the
    totals of rows 4 and 5 are equal across all of them.
 
+10. The staged driver (integrate/staged.py) on the stand-in at 1080p: a
+    sync-mode pass and a pipelined pass on the schedule the first one
+    planned (checked by ok()), each against li_wavefront's per-lane radiance
+    on the card; the widths and alive counts per bounce; pass ms of
+    li_wavefront's render() and of both modes in turns, device ms and
+    launches under torch.profiler. A width below the full one must be used,
+    and K1/K2 launched.
+11. pmj02bn on the stand-in: card against CPU at 64x36, one timed 1080p
+    pass.
+12. The debug integrators normals, ao, whitted (depth 16, its cap) and
+    path_mats on the stand-in: card against CPU at 64x36 and a timed 1080p
+    pass each, K1 launched (their shadow tests are nearest-hit queries).
+    Whitted decides a shadow test by the last bit where the light hits its
+    own shadow ray's end, so it is held by the full gate to the same pass on
+    the card with K1 replaced by the plain walk, and to the CPU by channel
+    means and rays (the lane share is logged).
+13. Textured 1080p: card against CPU at 64x36; the 1080p pass timed, K1
+    and K2 launched, the image finite with mean > 0; the lane-chunked
+    render (lane_chunk = 2**18, scatter splat) against the grid splat.
+
+Each of phases 10-13 logs its seconds, and the script its total.
 Every comparison of radiance holds PERF.md's gate: per-lane radiance within
 rtol 1e-3 / atol 1e-4 on >= 99% of lanes, channel means within 0.5% and ray
 totals within 0.1%.
@@ -165,7 +189,7 @@ def _sphere(D, center, radius, nu, nv, bsdf):
 
 
 def _box_scene(D, meshes, width, height, depth, rfilter, sampler="independent", spp=1,
-               regularization=False, background=None):
+               regularization=False, background=None, integrator=None):
     cam = D.PerspectiveCamera(
         width=width, height=height, fov=60.0,
         to_world=D.lookat(origin=[0, 1, -2.5], target=[0, 1, 0], up=[0, 1, 0]),
@@ -173,7 +197,7 @@ def _box_scene(D, meshes, width, height, depth, rfilter, sampler="independent", 
     return D.Scene(
         meshes=meshes, camera=cam,
         sampler=D.Sampler(kind=sampler, sample_count=spp, seed=1),
-        integrator=D.PathMis(max_depth=depth, regularization=regularization),
+        integrator=integrator or D.PathMis(max_depth=depth, regularization=regularization),
         rfilter=D.RFilter(kind=rfilter),
         background=background,
     )
@@ -196,14 +220,73 @@ def _cornell_meshes(D, wall=None):
     ]
 
 
-def stand_in_scene(D, width, height):
-    """Cornell box + lat-long kiss sphere, 1 spp, depth 5, independent
-    sampler, gaussian filter."""
+def stand_in_scene(D, width, height, sampler="independent", integrator=None):
+    """Cornell box + lat-long kiss sphere, 1 spp, depth 5, gaussian filter;
+    the independent sampler and path_mis unless asked otherwise."""
     sphere = _sphere(
         D, [0.0, 0.7, 0.2], 0.6, SPHERE_NU, SPHERE_NV,
         D.KazenStandard(base_color=(0.6, 0.4, 0.8), metallic=0.3, roughness=0.3),
     )
-    return _box_scene(D, _cornell_meshes(D) + [sphere], width, height, DEPTH, "gaussian")
+    return _box_scene(D, _cornell_meshes(D) + [sphere], width, height, DEPTH, "gaussian",
+                      sampler=sampler, integrator=integrator)
+
+
+def _bump_normals(res, rng):
+    """A tangent-space normal map of smooth random bumps, as linear RGB."""
+    x = np.arange(res) * (2 * np.pi / res)
+    h = sum(
+        rng.rand() * np.sin(k * x[:, None] + rng.rand() * 6.0) * np.cos(k * x[None, :])
+        for k in (3, 7, 13)
+    )
+    gy, gx = np.gradient(h)
+    n = np.stack([-gx * res / 40.0, -gy * res / 40.0, np.ones_like(h)], -1)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    return (0.5 * n + 0.5).astype(np.float32)
+
+
+def textured_scene(D, width, height):
+    """Textured: the stand-in with this slice's features. The sphere's kiss
+    baseColor (sRGB) and roughness are 1024x1024 images; the floor is a
+    normalmap (512x512 tangent-space bumps) over diffuse; roughconductor,
+    roughplastic and roughdielectric quads face the camera; the background
+    is a 512x256 lat-long sky with a bright sun, importance-sampled.
+    pmj02bn, 1 spp, depth 5, gaussian filter, mip filtering with EWA probes.
+    Every image is made from SEED."""
+    rng = np.random.RandomState(SEED)
+    res = 1024
+    u = np.linspace(0.0, 1.0, res, dtype=np.float32)
+    stripes = 0.5 + 0.5 * np.sin(2 * np.pi * 24 * (u[:, None] + 0.3 * u[None, :]))
+    base = np.stack([0.2 + 0.6 * stripes, 0.3 + 0.3 * (1 - stripes), 0.7 - 0.4 * stripes], -1)
+    base = np.clip(base + 0.1 * rng.rand(res, res, 3), 0.0, 1.0).astype(np.float32)
+    rough = (0.15 + 0.5 * rng.rand(res, res)).astype(np.float32)
+    sphere = _sphere(
+        D, [0.0, 0.7, 0.2], 0.6, SPHERE_NU, SPHERE_NV,
+        D.KazenStandard(
+            base_color=D.ImageTexture(data=base),
+            roughness=D.ImageTexture(data=rough, colorspace="linear"),
+            metallic=0.3,
+        ),
+    )
+    meshes = _cornell_meshes(D)
+    meshes[0] = _quad(D, [-1, 0, -1], [0, 0, 2], [2, 0, 0], D.NormalMap(
+        nested=D.Diffuse((0.725, 0.71, 0.68)),
+        normals=D.ImageTexture(data=_bump_normals(512, rng), colorspace="linear"),
+    ))
+    quads = [
+        _quad(D, [-0.95, 1.25, 0.9], [0, 0.5, 0], [0.5, 0, 0],
+              D.RoughConductor(material="Au", alpha=0.3)),
+        _quad(D, [0.45, 1.25, 0.9], [0, 0.5, 0], [0.5, 0, 0],
+              D.RoughPlastic(alpha=0.25, kd=(0.2, 0.45, 0.7))),
+        _quad(D, [-0.3, 0.05, -0.5], [0, 0.4, 0], [0.6, 0, 0],
+              D.RoughDielectric(roughness=0.2)),
+    ]
+    sky = np.full((256, 512, 3), 0.08, np.float32) + 0.04 * rng.rand(256, 512, 3).astype(np.float32)
+    sky[64:80, 160:184] = (80.0, 70.0, 50.0)  # the sun
+    background = D.Background(
+        texture=D.ImageTexture(data=sky, colorspace="linear"), intensity=1.0, importance=True
+    )
+    return _box_scene(D, meshes + [sphere] + quads, width, height, DEPTH, "gaussian",
+                      sampler="pmj02bn", background=background)
 
 
 def mixed_scene(D, width, height, sampler="independent", spp=1):
@@ -407,7 +490,7 @@ def li_lanes(torch, scene, static):
     through the route render() takes for the scene."""
     from kazen_tpu_torch.integrate.render import li_fn_for, sampler_spec
 
-    spec = sampler_spec(static)
+    spec = sampler_spec(static, scene.device)
     stream, rays = camera_rays(torch, scene, static, spec)
     return li_fn_for(static)(scene, static, spec, stream, rays)[1:]
 
@@ -423,12 +506,17 @@ def timed(torch, fn):
     return out, start.elapsed_time(end)
 
 
-def check_li(torch, got, want, label, phase):
+def check_li(torch, got, want, label, phase, lane_gate=True):
     """PERF.md's gate on two (li (N, 3), rays) pairs: per-lane radiance within
     rtol 1e-3 / atol 1e-4 on >= 99% of lanes, channel means within 0.5%,
-    ray totals within 0.1%. Returns (max abs err over all lanes, lane share)."""
+    ray totals within 0.1% (two images compare as li with rays None).
+    ``lane_gate=False`` logs the lane share without holding it (whitted
+    between two arithmetic paths: see phase 12). Returns (max abs err over
+    all lanes, lane share)."""
     (li_a, rays_a), (li_b, rays_b) = got, want
-    li_a, li_b = li_a.float().cpu(), li_b.float().cpu()
+    li_a, li_b = li_a.float().cpu().reshape(-1, 3), li_b.float().cpu().reshape(-1, 3)
+    if rays_a is None:
+        rays_a = rays_b = 0.0
     rays_a, rays_b = float(rays_a), float(rays_b)  # numbers or 0-d tensors
     share = torch.isclose(li_a, li_b, rtol=1e-3, atol=1e-4).all(-1).float().mean().item()
     m_a, m_b = li_a.double().mean(0), li_b.double().mean(0)
@@ -441,7 +529,7 @@ def check_li(torch, got, want, label, phase):
         f"vs {rays_b:.0f} (rel {rel_rays:.3g})")
     if not bool(torch.isfinite(li_a).all()):
         raise AssertionError(f"phase {phase}: {label}: non-finite radiance")
-    if share < 0.99:
+    if lane_gate and share < 0.99:
         raise AssertionError(f"phase {phase}: {label}: only {share:.5f} of lanes agree (< 0.99)")
     if rel_mean > 0.005:
         raise AssertionError(f"phase {phase}: {label}: channel means differ by {rel_mean:.4g}")
@@ -526,6 +614,138 @@ def profile_pass(torch, fn, out_dir, name, top=15):
         "top": [{"name": n, "device_ms": ms, "count": c} for n, (ms, c) in ranked[:top]],
     }
 
+def full_pass(torch, scene, static, kernels, label, phase, smi, need, out_dir=None):
+    """render() at full size: launch counts set to 0 before a warm-up pass
+    and read after it (every kernel in ``need`` launched, K3 not), the image
+    checked (finite, mean > 0), then three passes timed with CUDA events;
+    with ``out_dir``, one more pass under torch.profiler."""
+    from kazen_tpu_torch.integrate.render import render
+
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    img = render(scene, static, device="cuda")
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    counts = {name: k.launches for name, k in kernels.items()}
+    if any(counts[name] <= 0 for name in need) or counts["K3"]:
+        raise AssertionError(f"phase {phase}: {label}: launches {counts}, wanted {need} and no K3")
+    if not bool(torch.isfinite(img).all()) or not img.mean().item() > 0.0:
+        raise AssertionError(f"phase {phase}: {label}: image not finite with mean > 0")
+    ms = cuda_ms(torch, lambda: render(scene, static, device="cuda"), 3)
+    log(f"phase {phase}: {label} {static.width}x{static.height} pass {ms:.2f} ms (mean of 3, "
+        f"CUDA events; warm-up {warm_s * 1e3:.1f} ms host clock), launches K1 {counts['K1']}, "
+        f"K2 {counts['K2']}, image mean {img.mean().item():.5f} [{smi}]")
+    out = {"pass_ms": ms, "warm_ms": warm_s * 1e3, "launches": counts,
+           "image_mean": img.mean().item(), "width": static.width, "height": static.height}
+    if out_dir is not None:
+        name = re.sub(r"\W+", "_", label.lower()).strip("_")
+        prof = profile_pass(torch, lambda: render(scene, static, device="cuda"), out_dir, name)
+        log(f"phase {phase}: {label} profiled pass {prof['wall_ms']:.1f} ms, device busy "
+            f"{prof['device_ms']:.2f} ms ({prof['busy_share']:.3f}), trace kernels "
+            f"{prof['trace_kernel_ms']:.2f} ms, {prof['kernel_launches']} launches [{smi}]")
+        for row in prof["top"][:5]:
+            log(f"  {row['device_ms']:9.3f} ms {row['count']:6d}x  {row['name'][:90]}")
+        out["profile"] = prof
+    return out
+
+
+def staged_driver(torch, scene, static, spec):
+    """A StagedWavefront for full-grid render passes of ``scene``: stream
+    set-up and camera rays fold into its init, the splat into its finish;
+    a pass returns (image, per-lane li, rays traced)."""
+    from kazen_tpu_torch.film import film as film_mod
+    from kazen_tpu_torch.integrate import camera as camera_mod
+    from kazen_tpu_torch.integrate import path_mis as pm
+    from kazen_tpu_torch.integrate.render import pixel_grid
+    from kazen_tpu_torch.integrate.staged import StagedWavefront
+    from kazen_tpu_torch.samplers import streams
+
+    px, py = pixel_grid(static, scene.device)
+
+    def init_fn(sc, sample, jump):
+        stream = streams.init_stream_jump(spec, px, py, sample, jump)
+        stream, jitter = streams.next_pixel_2d(spec, stream)
+        stream, aperture = streams.next_2d(spec, stream)
+        ps = torch.stack([px, py], -1).to(torch.float32) + jitter
+        rays = camera_mod.sample_ray(sc, static, ps, aperture)
+        return pm.wavefront_init(sc, static, spec, stream, rays), jitter
+
+    def finish_fn(sc, st, jitter):
+        _, li, nrays = pm.wavefront_finish(sc, static, st)
+        film = film_mod.splat_grid(static, film_mod.make_film(static, sc.device), jitter, li)
+        return film_mod.to_bitmap(film), li, nrays
+
+    return StagedWavefront(static, px.shape[0], init_fn, finish_fn)
+
+
+def phase_staged(torch, scene, static, spec, wavefront_ms, wavefront_prof, kernels, out_dir,
+                 smi):
+    """Phase 10: one sync-mode and one pipelined staged pass of the stand-in
+    (the schedule from the sync pass's plan(), checked by ok()), each held
+    to PERF.md's gate against li_wavefront's pass on the card; the widths
+    and alive counts; pass ms of li_wavefront's render() and both staged
+    modes in turns, and each one's device ms and launches under
+    torch.profiler, beside phase 3's and phase 5's figures."""
+    from kazen_tpu_torch.core import rng
+    from kazen_tpu_torch.integrate.render import render
+
+    jump = rng.advance_constants(0)
+    sw = staged_driver(torch, scene, static, spec)
+    want = li_lanes(torch, scene, static)  # li_wavefront, sample pass 0
+    for k in kernels.values():
+        k.launches = 0
+    (img, li, nrays), rec = sw.run(scene, spec, 0, jump)
+    torch.cuda.synchronize()
+    counts = {name: k.launches for name, k in kernels.items()}
+    if counts["K1"] <= 0 or counts["K2"] <= 0 or counts["K3"]:
+        raise AssertionError(f"phase 10: staged sync pass launches {counts}")
+    if min(rec.widths) >= sw.n:
+        raise AssertionError(f"phase 10: no bounce ran below the full width: {rec.widths}")
+    check_li(torch, (li, nrays), want, "staged sync pass vs li_wavefront", 10)
+    plan = rec.plan()
+    (img_p, li_p, nrays_p), rec_p = sw.run(scene, spec, 0, jump, widths=plan)
+    if not rec_p.ok():
+        raise AssertionError(f"phase 10: the planned schedule {plan} did not cover the pass")
+    check_li(torch, (li_p, nrays_p), want, "staged pipelined pass vs li_wavefront", 10)
+    log(f"phase 10: menu {sw.widths}; sync widths {rec.widths}, alive after each bounce "
+        f"{rec._ints()}; plan {plan}, pipelined alive {rec_p._ints()}, ok {rec_p.ok()}; "
+        f"K1 {counts['K1']}, K2 {counts['K2']} launches per pass")
+
+    def wavefront():
+        return render(scene, static, device="cuda")
+
+    def sync():
+        return sw.run(scene, spec, 0, jump)
+
+    def pipelined():
+        return sw.run(scene, spec, 0, jump, widths=plan)
+
+    fns = {"wavefront": wavefront, "sync": sync, "pipelined": pipelined}
+    ms = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for k in order:
+            ms[k].append(cuda_ms(torch, fns[k], 3))
+    profs = {k: profile_pass(torch, fns[k], out_dir, f"staged_{k}") for k in ("sync", "pipelined")}
+    for k in fns:
+        extra = ""
+        if k in profs:
+            extra = (f", device {profs[k]['device_ms']:.2f} ms in {profs[k]['kernel_launches']} "
+                     f"launches, busy {profs[k]['busy_share']:.3f}, trace kernels "
+                     f"{profs[k]['trace_kernel_ms']:.2f} ms")
+        log(f"phase 10: {k} pass {np.mean(ms[k]):.2f} ms (turns {ms[k][0]:.2f}, {ms[k][1]:.2f}; "
+            f"each a mean of 3, CUDA events){extra} [{smi}]")
+    log(f"phase 10: li_wavefront's figures of this run: phase 3 pass {wavefront_ms:.2f} ms, "
+        f"phase 5 device {wavefront_prof['device_ms']:.2f} ms in "
+        f"{wavefront_prof['kernel_launches']} launches [{smi}]")
+    return {
+        "menu": sw.widths, "sync_widths": rec.widths, "sync_alive": rec._ints(),
+        "plan": plan, "pipelined_alive": rec_p._ints(), "launches": counts,
+        "pass_ms": {k: float(np.mean(v)) for k, v in ms.items()}, "pass_ms_turns": ms,
+        "profiles": profs,
+    }
+
 
 def main() -> int:
     import torch
@@ -546,7 +766,7 @@ def main() -> int:
     kernels = {"K1": ct.NEAREST, "K2": ct.ANY_HIT, "K3": mk.MEGAKERNEL}
 
     # ---- phase 0: build -------------------------------------------------
-    t0 = time.time()
+    t_start = t0 = time.time()
     with ThreadPoolExecutor(3) as pool:
         f_trace = pool.submit(ct.build_library)
         f_mega = pool.submit(mk.build_library)
@@ -937,6 +1157,82 @@ def main() -> int:
             f"{t_ops:.4f}; {passes[label]['bound_unfused_ms']:.4f} at the unfused rate) [{smi}]")
         save_png(os.path.join(out_dir, f"chip_smoke_{label.lower()}_1080p.png"), img.cpu())
 
+    # ---- phase 10: the staged wavefront driver on the stand-in -------------
+    t_phase = time.time()
+    staged = phase_staged(torch, scene, static, spec, pass_ms, profiles["stand_in"], kernels,
+                          out_dir, smi)
+    log(f"phase 10: {time.time() - t_phase:.1f} s")
+
+    # ---- phase 11: the pmj02bn sampler on the stand-in ----------------------
+    t_phase = time.time()
+    small = stand_in_scene(D, SMALL_W, SMALL_H, sampler="pmj02bn")
+    check_li(torch, li_lanes(torch, *compile_scene(small, device="cuda")),
+             li_lanes(torch, *compile_scene(small, device="cpu")),
+             f"pmj02bn {SMALL_W}x{SMALL_H} pass, card vs CPU", 11)
+    pmj = full_pass(torch, *compile_scene(stand_in_scene(D, WIDTH, HEIGHT, sampler="pmj02bn"),
+                                          device="cuda"), kernels, "pmj02bn stand-in", 11, smi,
+                    need=("K1", "K2"), out_dir=out_dir)
+    log(f"phase 11: {time.time() - t_phase:.1f} s")
+
+    # ---- phase 12: the debug integrators on the stand-in ---------------------
+    t_phase = time.time()
+    integrators = {}
+    for kind in ("normals", "ao", "whitted", "path_mats"):
+        integ = D.SimpleIntegrator(kind=kind, max_depth=16 if kind == "whitted" else DEPTH)
+        small = stand_in_scene(D, SMALL_W, SMALL_H, integrator=integ)
+        on_card = compile_scene(small, device="cuda")
+        got = li_lanes(torch, *on_card)
+        if kind == "whitted":
+            # whitted's shadow ray ends exactly on the light point (maxt =
+            # dist, the reference's semantics), so the light's own hit at
+            # t ~ maxt decides occlusion by the last bit of arithmetic done
+            # before it (the card's and the CPU's sin, cos and sums differ)
+            # and by whether the light's cluster box survives the slab test
+            # (the walk culls it where the brute-force plain trace tests the
+            # triangle). K1 is held by the full gate to the plain walk, which
+            # it equals bit for bit, on the card; card against CPU by channel
+            # means and rays
+            trace_cuda = ct.trace_cuda
+            ct.trace_cuda = lambda tables_, rays_, *args: ct.trace_walk_plain(tables_, rays_)
+            try:
+                want = li_lanes(torch, *on_card)
+            finally:
+                ct.trace_cuda = trace_cuda
+            check_li(torch, got, want, f"whitted {SMALL_W}x{SMALL_H} pass, K1 vs the plain walk "
+                     f"on the card", 12)
+        check_li(torch, got, li_lanes(torch, *compile_scene(small, device="cpu")),
+                 f"{kind} {SMALL_W}x{SMALL_H} pass, card vs CPU", 12, lane_gate=kind != "whitted")
+        integrators[kind] = full_pass(
+            torch, *compile_scene(stand_in_scene(D, WIDTH, HEIGHT, integrator=integ),
+                                  device="cuda"),
+            kernels, f"{kind} (depth {integ.max_depth}) stand-in", 12, smi, need=("K1",),
+        )
+    log(f"phase 12: {time.time() - t_phase:.1f} s")
+
+    # ---- phase 13: Textured 1080p ------------------------------------------
+    t_phase = time.time()
+    small = textured_scene(D, SMALL_W, SMALL_H)
+    check_li(torch, li_lanes(torch, *compile_scene(small, device="cuda")),
+             li_lanes(torch, *compile_scene(small, device="cpu")),
+             f"Textured {SMALL_W}x{SMALL_H} pass, card vs CPU", 13)
+    t0 = time.time()
+    tex_scene, tex_static = compile_scene(textured_scene(D, WIDTH, HEIGHT), device="cuda")
+    compile_s = time.time() - t0
+    log(f"phase 13: Textured 1080p compiled in {compile_s:.1f} s: "
+        f"{int(tex_scene.F.shape[0])} faces, {int(tex_scene.textures.texels.shape[0])} texels "
+        f"in {int(tex_scene.textures.ttype.shape[0])} texture nodes, environment tables "
+        f"{tex_static.env_res}")
+    textured = full_pass(torch, tex_scene, tex_static, kernels, "Textured", 13, smi,
+                         need=("K1", "K2"), out_dir=out_dir)
+    textured["compile_s"] = compile_s
+    img_grid = render(tex_scene, tex_static, device="cuda")
+    img_chunked = render(tex_scene, tex_static, lane_chunk=1 << 18, device="cuda")
+    err, share = check_li(torch, (img_chunked, None), (img_grid, None),
+                          f"Textured 1080p lane_chunk={1 << 18} (scatter splat) vs grid splat", 13)
+    textured["chunked_vs_grid"] = {"max_abs_err": err, "share": share}
+    save_png(os.path.join(out_dir, "chip_smoke_textured_1080p.png"), img_grid.cpu())
+    log(f"phase 13: {time.time() - t_phase:.1f} s")
+
     mixed_run = passes["Mixed"]
     chosen = mixed_run["variants"][f"refill {mk.REFILL} B={mk.MIN_BLOCKS}"]
     rows.append({
@@ -967,8 +1263,11 @@ def main() -> int:
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "pass_ms": pass_ms, "rays_per_pass": nrays_stand_in,
                    "pass_ms_by_drain": pass_ab, "k3_ptxas": k3_ptxas,
-                   "megakernel_passes": passes, "kernels": rows, "profiles": profiles},
+                   "megakernel_passes": passes, "kernels": rows, "profiles": profiles,
+                   "staged": staged, "pmj02bn": pmj, "integrators": integrators,
+                   "textured": textured, "total_s": time.time() - t_start},
                   f, indent=1)
+    log(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({
@@ -976,7 +1275,7 @@ def main() -> int:
         "device": {
             "platform": "gpu",
             "kind": torch.cuda.get_device_name(0),
-            "count": 1,  # the run uses one card
+            "count": torch.cuda.device_count(),
         },
     }), flush=True)
     return 0

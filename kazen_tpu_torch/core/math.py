@@ -117,6 +117,21 @@ def fresnel(cos_theta_i, ext_ior, int_ior):
     return torch.where(ext_ior == int_ior, 0.0, f)
 
 
+def fresnel_dielectric(cos_theta_i, eta):
+    """fresnelDielectric with cosThetaT out (common.cpp:491-517); eta =
+    int_ior / ext_ior. Returns (F, cos_theta_t)."""
+    scale = torch.where(cos_theta_i > 0.0, 1.0 / eta, eta)
+    cos_t2 = 1.0 - (1.0 - cos_theta_i * cos_theta_i) * (scale * scale)
+    ci = torch.abs(cos_theta_i)
+    ok = cos_t2 > 0.0
+    ct = torch.sqrt(torch.where(ok, cos_t2, 1.0))  # TIR: see refract
+    rs = (ci - eta * ct) / (ci + eta * ct)
+    rp = (eta * ci - ct) / (eta * ci + ct)
+    f = torch.where(ok, 0.5 * (rs * rs + rp * rp), 1.0)
+    cos_theta_t = torch.where(ok, torch.where(cos_theta_i > 0.0, -ct, ct), 0.0)
+    return f, cos_theta_t
+
+
 def to_srgb(c):
     return torch.where(
         c <= 0.0031308,

@@ -91,3 +91,22 @@ def square_to_cosine_hemisphere(s):
 
 def square_to_cosine_hemisphere_pdf(v):
     return INV_PI * v[..., 2]
+
+
+def square_to_beckmann(s, alpha):
+    """Beckmann microfacet normal (warp.cpp:118-127)."""
+    phi = 2.0 * pymath.pi * s[..., 0]
+    theta = torch.atan(
+        alpha * torch.sqrt(torch.log(1.0 / torch.clamp(1.0 - s[..., 1], min=1e-9)))
+    )
+    st, ct = torch.sin(theta), torch.cos(theta)
+    return vec3(st * torch.cos(phi), st * torch.sin(phi), ct)
+
+
+def square_to_beckmann_pdf(m, alpha):
+    ct = torch.clamp(m[..., 2], -1.0, 1.0)
+    tan2 = torch.clamp(1.0 - ct * ct, min=0.0) / torch.clamp(ct * ct, min=1e-9)
+    pdf = torch.exp(-tan2 / (alpha * alpha)) / (
+        pymath.pi * alpha * alpha * torch.clamp(ct, min=1e-9) ** 3
+    )
+    return torch.where(ct > 0.0, pdf, 0.0)

@@ -111,11 +111,9 @@ def supported_reason(arrays, static):
         return False, "integrator is not path_mis"
     if static.sampler_kind not in SAMPLER_IDS:
         return False, f"sampler {static.sampler_kind} unsupported"
-    if getattr(static, "env_importance", False):
+    if static.env_importance:
         return False, "env importance sampling enabled"
-    if getattr(static, "has_image_textures", False) or getattr(
-        static, "has_composite_textures", False
-    ):
+    if static.has_image_textures or static.has_composite_textures:
         return False, "image/composite textures present"
     if any(t not in _SUPPORTED_BTYPES for t in static.btypes_present):
         return False, "BSDF type outside the supported set"
@@ -128,6 +126,8 @@ def supported_reason(arrays, static):
         lf = int(arrays.light_faces.shape[0]) * int(arrays.light_faces.shape[1])
         if lf > MAX_LIGHT_TRIS:
             return False, f"{lf} light tris > {MAX_LIGHT_TRIS}"
+    if static.has_background and int(arrays.bg_tex) >= 0:
+        return False, "image background texture"
     mt = arrays.materials
     for tex in (mt.tex_base, mt.tex_metallic, mt.tex_roughness, mt.tex_normal):
         if bool((tex >= 0).any()):

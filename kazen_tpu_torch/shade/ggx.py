@@ -1,7 +1,7 @@
-"""GGX-Smith microfacet math (ggx_brdf.h, after Heitz 2014/2018), the part
-the kiss BSDF uses. The port of ``kazen_tpu/shade/ggx.py``; the Beckmann
-pieces of the rough* models wait until those models are ported. Functions
-work on local-frame direction batches (..., 3)."""
+"""Microfacet math on local-frame direction batches (..., 3): GGX-Smith
+(ggx_brdf.h, after Heitz 2014/2018) for kiss and ggx, and the Beckmann
+pieces of the rough* models (bsdf.cpp:717-757). The port of
+``kazen_tpu/shade/ggx.py``."""
 from __future__ import annotations
 
 import math as pymath
@@ -116,3 +116,42 @@ def eval_ggx_smith_brdf(v, l, f0, roughness, anisotropy):
     brdf = (d * g / torch.clamp(denom, min=1e-9))[..., None] * f
     zero = (v[..., 2] * l[..., 2] < 0.0)[..., None]
     return torch.where(zero, 0.0, brdf), f
+
+
+# ---------------------------------------------------------------------------
+# Beckmann microfacet pieces of roughconductor, roughplastic and
+# roughdielectric (bsdf.cpp:727-757; each class holds the same copy)
+# ---------------------------------------------------------------------------
+
+
+def beckmann_ndf(m, alpha):
+    """evalBeckmann: exp(-tan^2 / a^2) / (pi a^2 cos^4)."""
+    ct = m[..., 2]
+    ct2 = torch.clamp(km.sqr(ct), min=1e-9)
+    tan2 = torch.clamp(1.0 - km.sqr(ct), min=0.0) / ct2
+    return torch.exp(-tan2 / km.sqr(alpha)) / (pymath.pi * km.sqr(alpha) * km.sqr(ct2))
+
+
+def smith_beckmann_g1(v, m, alpha):
+    """Rational approximation of Smith-Beckmann G1 (bsdf.cpp:737-757). The
+    tangent is clamped to 1e-2 inside the approximation only, where a < 1.6
+    selects it, so no taken value changes."""
+    ct = v[..., 2]
+    tan_theta = torch.abs(
+        torch.sqrt(torch.clamp(1.0 - ct * ct, min=0.0)) / torch.where(ct == 0.0, 1e-9, ct)
+    )
+    a = 1.0 / (alpha * torch.clamp(tan_theta, min=1e-2))
+    a2 = a * a
+    approx = (3.535 * a + 2.181 * a2) / (1.0 + 2.276 * a + 2.577 * a2)
+    g = torch.where((a >= 1.6) | (tan_theta == 0.0), 1.0, approx)
+    return torch.where(km.dot(v, m) * ct <= 0.0, 0.0, g)
+
+
+def fresnel_conductor(cos_theta_i, eta, k):
+    """fresnelCond (bsdf.cpp:717-726); eta and k are (..., 3)."""
+    ci = cos_theta_i[..., None]
+    tmp_f = km.sqr(eta) + km.sqr(k)
+    tmp = tmp_f * km.sqr(ci)
+    rparl2 = (tmp - 2.0 * eta * ci + 1.0) / (tmp + 2.0 * eta * ci + 1.0)
+    rperp2 = (tmp_f - 2.0 * eta * ci + km.sqr(ci)) / (tmp_f + 2.0 * eta * ci + km.sqr(ci))
+    return (rparl2 + rperp2) / 2.0

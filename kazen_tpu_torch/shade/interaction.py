@@ -2,9 +2,11 @@
 shadow-terminator-corrected hit point, geometric frame, UV interpolation and
 the dpdu/dpdv tangent frame with degenerate-UV and missing-normal fallbacks.
 
-The port of ``kazen_tpu/shade/interaction.py``'s trace-row path: the input is
-the 40-row matrix of ``accel/cluster_trace.py:trace``, which already holds the
-winning face's vertices, normals, uvs and metadata.
+The port of ``kazen_tpu/shade/interaction.py``. ``prepare_from_rows`` reads
+the 40-row matrix of ``accel/cluster_trace.py:trace``, which already holds
+the winning face's vertices, normals, uvs and metadata (the path_mis
+wavefront); ``prepare`` fetches them from the scene's tables by the hit's
+face id (the debug integrators, as in the reference).
 """
 from __future__ import annotations
 
@@ -59,6 +61,19 @@ def prepare_from_rows(rays: Rays, rows: torch.Tensor) -> "tuple[Hit, Interaction
         has_uv, rows[33].to(torch.int64),
     )
     return hit, its
+
+
+def prepare(scene, rays: Rays, hit: Hit) -> Interaction:
+    """Shade prep of ``hit`` from the scene's per-face shading rows."""
+    f = torch.clamp(hit.face, 0, scene.F.shape[0] - 1)
+    row = scene.face_shade[f]  # (N, 24)
+    mesh = scene.face_mesh[f]
+    return _prepare_core(
+        hit, row[:, 0:3], row[:, 3:6], row[:, 6:9], row[:, 9:12], row[:, 12:15],
+        row[:, 15:18], row[:, 18:20], row[:, 20:22], row[:, 22:24],
+        scene.mesh_material[mesh], scene.mesh_light[mesh], scene.mesh_has_normals[mesh],
+        scene.mesh_has_uvs[mesh], torch.zeros_like(f),
+    )
 
 
 def _prepare_core(

@@ -113,11 +113,7 @@ def test_supported_reason_matches_reference(case):
     else:
         desc = cornell_box(width=8, height=8, sampler="pmj02bn" if case == "pmj02bn" else "independent")
     a_j, s_j = compile_jax(desc)
-    if case == "pmj02bn":  # the port's compiler refuses the sampler outright
-        a_t, s_t = compile_port(cornell_box(width=8, height=8))
-        s_t = dataclasses.replace(s_t, sampler_kind="pmj02bn")
-    else:
-        a_t, s_t = compile_port(desc)
+    a_t, s_t = compile_port(desc)
     if case == "light_tris":
         s_j = dataclasses.replace(s_j, num_lights=1)
         a_j = a_j._replace(light_faces=jnp.zeros((1, 65), jnp.int32))
@@ -314,3 +310,26 @@ def test_kernel_matches_plain_on_card():
             assert mk_t.MEGAKERNEL.launches == before + 1
             differ = int((k != p).any(0).sum())
             assert differ == 0, f"refill {refill}: {differ} lanes differ"
+
+
+def test_image_background_takes_the_wavefront():
+    """A scene of <= 128 faces under an image background (no importance
+    sampling) stays off K3, which shades only a constant background, with
+    the reference's reason; the background check itself, reached with the
+    texture flags cleared, gives the reference's reason too."""
+    sky = np.full((4, 8, 3), 0.3, np.float32)
+    desc = cornell_box(width=8, height=8, background=DJ.Background(
+        texture=DJ.ImageTexture(data=sky, colorspace="linear")))
+    a_j, s_j = compile_jax(desc)
+    a_t, s_t = compile_port(desc)
+    assert int(a_t.F.shape[0]) <= mk_t.MAX_BRUTE and int(a_t.bg_tex) >= 0
+    want = mk_j.supported_reason(a_j, s_j)
+    assert mk_t.supported_reason(a_t, s_t) == want and not want[0]
+    assert not s_t.use_megakernel and a_t.mega is None
+    with pytest.raises(ValueError, match="class"):
+        comp_t.compile_scene(to_port(desc), device="cpu", megakernel=True)
+    s_j2 = dataclasses.replace(s_j, has_image_textures=False)
+    s_t2 = dataclasses.replace(s_t, has_image_textures=False)
+    want = mk_j.supported_reason(a_j, s_j2)
+    assert want == (False, "image background texture")
+    assert mk_t.supported_reason(a_t, s_t2) == want

@@ -161,5 +161,8 @@ def test_stream_draws_bit_exact(kind, spp):
 
 
 def test_unported_sampler_raises():
-    with pytest.raises(NotImplementedError, match="pmj02bn"):
-        streams_t.SamplerSpec(kind="pmj02bn")
+    """Every sampler kind of the reference is ported (pmj02bn's streams are
+    held in test_torch_samplers.py); an unknown kind is refused."""
+    assert streams_t.SamplerSpec(kind="pmj02bn", sample_count=4).effective_sample_count == 4
+    with pytest.raises(ValueError, match="unknown sampler kind"):
+        streams_t.SamplerSpec(kind="sobol")

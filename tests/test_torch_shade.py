@@ -185,9 +185,15 @@ def test_regularize(scenes):
 
 
 def test_unported_bsdf_type_raises(scenes):
+    """Every material type of the reference is ported (the rough* models and
+    the normal map are held in test_torch_textures.py); the dispatch refuses
+    an id no model has, as the reference's does."""
     _, (_, s_t) = scenes
-    with pytest.raises(NotImplementedError, match="not ported"):
-        bsdf_t._base_types(dataclasses.replace(s_t, btypes_present=(0, 5)))  # roughconductor
+    assert bsdf_t._base_types(dataclasses.replace(s_t, btypes_present=(0, 5, 6, 7, 9))) == (
+        0, 5, 6, 7,
+    )
+    with pytest.raises(ValueError, match="unhandled btype"):
+        bsdf_t._base_types(dataclasses.replace(s_t, btypes_present=(0, 10)))
 
 
 @pytest.fixture(scope="module")
@@ -292,3 +298,106 @@ def test_frames_and_color():
     c = rng.rand(256, 3).astype(np.float32) * 1.2
     close(km_t.to_srgb(torch.from_numpy(c)), km_j.to_srgb(jnp.asarray(c)))
     close(km_t.luminance(torch.from_numpy(c)), km_j.luminance(jnp.asarray(c)))
+
+
+@pytest.fixture(scope="module")
+def textured():
+    """The textured scene (image textures, normalmap, rough* models; the
+    composite nodes are held in test_torch_textures.py), compiled by the
+    reference and carried across."""
+    from torch_port_helpers import port_from_reference, textured_scene
+
+    a_j, s_j = compile_reference(textured_scene(width=8, height=8, composite=False))
+    return (a_j, s_j), port_from_reference(a_j, s_j)
+
+
+def _typed_inputs(btypes, btype, seed, n=2048):
+    ids = np.flatnonzero(btypes == btype)
+    assert len(ids) == 1
+    rng = np.random.RandomState(seed)
+    wi, wo = _unit(rng, n), _unit(rng, n)
+    wi[: n // 2, 2] = np.abs(wi[: n // 2, 2])
+    wo[: n // 4, 2] = np.abs(wo[: n // 4, 2])
+    return (
+        np.full(n, ids[0], np.int32), wi, wo, (0.3 * rng.rand(n)).astype(np.float32),
+        rng.rand(n, 2).astype(np.float32), rng.rand(n).astype(np.float32),
+        rng.rand(n, 2).astype(np.float32), _unit(rng, n),
+    )
+
+
+def _check_type(pair, btype, seed, lod=None):
+    """eval_pdf_ctx of one material type against the reference at rtol 1e-5
+    / atol 1e-6 on every lane, and sample_ctx: the sampled direction at that
+    limit on >= 99.5% of lanes and 1e-3 on all, as
+    test_bsdf_type_matches_reference explains; the weight and pdf of the
+    sample at rtol 1e-4 on >= 99.5% of lanes and 1e-3 on all, because a
+    Beckmann lobe's exp(-tan^2 / alpha^2) multiplies the direction's 1-ulp
+    differences by about 1 / alpha^2 (123 at roughness 0.3).
+    Returns (the port's context, the reference's context and sample)."""
+    (a_j, s_j), (a_t, s_t) = pair
+    mat, wi, wo, accum, uv, s1, s2, nrm = _typed_inputs(
+        np.asarray(a_j.materials.btype), btype, seed
+    )
+    fj = km_j.frame_from_normal(jnp.asarray(nrm))
+    ft = km_t.frame_from_normal(torch.from_numpy(nrm))
+    kw_j, kw_t = {}, {}
+    if lod is not None:
+        lod_, aniso = lod
+        kw_j = dict(lod=jnp.asarray(lod_), aniso=tuple(jnp.asarray(a) for a in aniso))
+        kw_t = dict(lod=torch.from_numpy(lod_), aniso=tuple(torch.from_numpy(a) for a in aniso))
+    ctx_j = bsdf_j.make_ctx(s_j, a_j, jnp.asarray(mat), jnp.asarray(uv), fj, fj.s,
+                            jnp.asarray(wi), **kw_j)
+    ctx_t = bsdf_t.make_ctx(s_t, a_t, torch.from_numpy(mat).long(), torch.from_numpy(uv), ft,
+                            torch.from_numpy(wi), dpdu=ft.s, **kw_t)
+    tol = dict(rtol=1e-5, atol=1e-6)
+    fj_, pj_ = bsdf_j.eval_pdf_ctx(s_j, a_j, ctx_j, jnp.asarray(wo), jnp.asarray(accum))
+    ft_, pt_ = bsdf_t.eval_pdf_ctx(s_t, ctx_t, torch.from_numpy(wo), torch.from_numpy(accum))
+    np.testing.assert_allclose(ft_.numpy(), np.asarray(fj_), err_msg="eval", **tol)
+    np.testing.assert_allclose(pt_.numpy(), np.asarray(pj_), err_msg="pdf", **tol)
+    assert (np.asarray(pj_) > 0).mean() > 0.1
+    rj = bsdf_j.sample_ctx(s_j, a_j, ctx_j, jnp.asarray(s1), jnp.asarray(s2), jnp.asarray(accum))
+    rt = bsdf_t.sample_ctx(s_t, ctx_t, torch.from_numpy(s1), torch.from_numpy(s2),
+                           torch.from_numpy(accum))
+    for field, rtol in (("wo", 1e-5), ("weight", 1e-4), ("pdf", 1e-4)):
+        got, want = getattr(rt, field).numpy(), np.asarray(getattr(rj, field))
+        lanes = np.isclose(got, want, rtol=rtol, atol=1e-6)
+        lanes = lanes.all(-1) if lanes.ndim == 2 else lanes
+        assert lanes.mean() >= 0.995, (field, lanes.mean())
+        np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-5, err_msg=field)
+    np.testing.assert_allclose(rt.eta.numpy(), np.asarray(rj.eta), err_msg="eta", **tol)
+    np.testing.assert_array_equal(rt.is_discrete.numpy(), np.asarray(rj.is_discrete))
+    assert (np.asarray(rj.weight) > 0).any(-1).mean() > 0.1
+    return ctx_t, ctx_j, rj
+
+
+@pytest.mark.parametrize("name", ["roughconductor", "roughplastic", "roughdielectric"])
+def test_rough_bsdfs_match_reference(textured, name):
+    btype = {"roughconductor": 5, "roughplastic": 6, "roughdielectric": 7}[name]
+    _, _, rj = _check_type(textured, btype, 20 + btype)
+    if name == "roughdielectric":  # both lobes, and both sides of the surface
+        eta = np.asarray(rj.eta)
+        assert (eta == 1.0).any() and (eta != 1.0).any()
+
+
+def test_normalmap_matches_reference(textured):
+    """The normalmap wrapper over diffuse: the perturbed frame from the
+    tangent-space texture, the hemisphere shortcut and the rejection of
+    flipped directions."""
+    ctx_t, _, _ = _check_type(textured, 9, 31)
+    assert 0.3 < ctx_t.perturbed.float().mean().item() < 1.0
+
+
+def test_textured_kiss_with_footprint_matches_reference(textured):
+    """kiss with image and composite textures fetched through the mip
+    footprint (lod and the EWA half-axis threaded as uv columns)."""
+    rng = np.random.RandomState(40)
+    n = 2048
+    lod = (rng.rand(n) * 10.0 - 9.0).astype(np.float32)
+    aniso = tuple((rng.randn(n) * 0.01).astype(np.float32) for _ in range(2))
+    ctx_t, ctx_j, _ = _check_type(textured, 8, 41, lod=(lod, aniso))
+    assert ctx_t.uv.shape == (n, 5)
+    (a_j, s_j), (_, s_t) = textured
+    np.testing.assert_allclose(
+        bsdf_t.regularize_ctx(s_t, ctx_t).numpy(),
+        np.asarray(bsdf_j.regularize_ctx(s_j, a_j, ctx_j)), rtol=1e-5, atol=1e-6,
+    )

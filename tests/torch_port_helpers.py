@@ -129,12 +129,14 @@ def reference_to_numpy(arrays, static):
         "mesh_has_normals", "mesh_has_uvs", "light_mesh", "light_radiance",
         "light_primary_vis", "light_cdf", "light_faces", "light_inv_area", "bg_color",
         "bg_intensity", "cam_to_world", "sample_to_camera", "cam_near", "cam_far",
-        "aperture_radius", "focus_distance",
+        "aperture_radius", "focus_distance", "bg_tex", "env_row_cdf", "env_col_cdf",
+        "env_pdf",
     ):
         out[name] = np.asarray(getattr(arrays, name))
     out["materials"] = {
         k: np.asarray(v) for k, v in arrays.materials._asdict().items()
     }
+    out["textures"] = {k: np.asarray(v) for k, v in arrays.textures._asdict().items()}
     tt = arrays.trace_tables
     out["trace_tables"] = {
         "node_scalars": np.asarray(tt.node_scalars, np.float32),
@@ -147,3 +149,74 @@ def reference_to_numpy(arrays, static):
 def port_from_reference(arrays, static):
     """The port's scene built from kazen_tpu's compiled scene."""
     return scene_from_numpy(*reference_to_numpy(arrays, static), device="cpu")
+
+
+def _bump_normals(res, seed):
+    """A tangent-space normal map of smooth random bumps, as linear RGB."""
+    rng = np.random.RandomState(seed)
+    x = np.arange(res) * (2 * np.pi / res)
+    h = sum(
+        rng.rand() * np.sin(k * x[:, None] + rng.rand() * 6.0) * np.cos(k * x[None, :])
+        for k in (2, 5, 9)
+    )
+    gy, gx = np.gradient(h)
+    n = np.stack([-gx * res / 40.0, -gy * res / 40.0, np.ones_like(h)], -1)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    return (0.5 * n + 0.5).astype(np.float32)
+
+
+def sky_image(h, w, seed):
+    """A lat-long sky: dim seeded noise and one bright sun blob."""
+    rng = np.random.RandomState(seed)
+    img = (0.05 + 0.05 * rng.rand(h, w, 3)).astype(np.float32)
+    img[h // 4: h // 4 + max(h // 16, 2), w // 3: w // 3 + max(w // 16, 2)] = (60.0, 50.0, 35.0)
+    return img
+
+
+def textured_scene(width=24, height=24, sampler="pmj02bn", spp=4, max_depth=4, importance=True,
+                   composite=True):
+    """The box with this slice's features: a kiss sphere whose baseColor
+    (sRGB image) and roughness (an image; with ``composite``, a colorramp
+    over it, and a metallic blend under an image mask) are textures; a
+    normal-mapped diffuse floor; roughconductor, roughplastic and
+    roughdielectric quads; a lat-long sky with a sun, importance-sampled;
+    mip filtering with EWA probes."""
+    rng = np.random.RandomState(17)
+    base = rng.rand(64, 64, 3).astype(np.float32)
+    rough = DJ.ImageTexture(data=rng.rand(32, 32).astype(np.float32), colorspace="linear",
+                            scale=2.0)
+    mask = rng.rand(16, 16, 3).astype(np.float32)
+    kiss = DJ.KazenStandard(base_color=DJ.ImageTexture(data=base), roughness=rough, clearcoat=0.4)
+    if composite:
+        kiss = dataclasses.replace(
+            kiss,
+            roughness=DJ.ColorRamp(input=rough, min=0.1, max=0.7),
+            metallic=DJ.Blend(
+                mask=DJ.ImageTexture(data=mask, colorspace="linear"),
+                input1=DJ.ConstantTexture((0.1, 0.1, 0.1)),
+                input2=DJ.ConstantTexture((0.6, 0.6, 0.6)),
+            ),
+        )
+    extra = (
+        sphere_mesh([0.0, 0.8, 0.3], 0.45, nu=24, nv=24, bsdf=kiss),
+        make_mesh([-0.9, 0.1, 0.8], [0, 0.5, 0], [0.5, 0, 0],
+                  bsdf=DJ.RoughConductor(material="Cu", alpha=0.4)),
+        make_mesh([0.4, 0.1, 0.8], [0, 0.5, 0], [0.5, 0, 0],
+                  bsdf=DJ.RoughPlastic(alpha=0.3, kd=(0.2, 0.5, 0.7))),
+        make_mesh([-0.25, 1.25, 0.0], [0, 0.4, 0], [0.5, 0, 0],
+                  bsdf=DJ.RoughDielectric(roughness=0.3)),
+    )
+    sky = DJ.Background(
+        texture=DJ.ImageTexture(data=sky_image(32, 64, 3), colorspace="linear"),
+        intensity=1.0, importance=importance,
+    )
+    desc = cornell_box(
+        width=width, height=height, spp=spp, sampler=sampler, max_depth=max_depth,
+        extra_meshes=extra, background=sky,
+    )
+    floor = desc.meshes[0]
+    desc.meshes[0] = dataclasses.replace(floor, bsdf=DJ.NormalMap(
+        nested=DJ.Diffuse((0.7, 0.7, 0.65)),
+        normals=DJ.ImageTexture(data=_bump_normals(64, 5), colorspace="linear"),
+    ))
+    return desc
