@@ -7,9 +7,10 @@ kernels K1/K2 on the stand-in scene (36,876 faces), and the megakernel K3 on
 scenes of at most 128 faces (Mixed 1080p: the Cornell box with kiss, mirror,
 GGX, dielectric and lambertian quads, 22 faces, depth 5; Toy 1080p: the
 12-triangle diffuse/kiss box, depth 4). On the wavefront's kernels run also
-the staged driver, the pmj02bn sampler, the four debug integrators and
+the staged driver, the pmj02bn sampler, the four debug integrators,
 Textured 1080p (the stand-in with image textures, a normal map, the rough*
-models and an importance-sampled sky).
+models and an importance-sampled sky), inverse rendering (optimize), the
+XML/OBJ/PNG/EXR front end with checkpoints and the CLI, and dist/ on nccl.
 
 Phases (each check raises; the script exits non-zero on the first failure):
 
@@ -80,7 +81,32 @@ Phases (each check raises; the script exits non-zero on the first failure):
     and K2 launched, the image finite with mean > 0; the lane-chunked
     render (lane_chunk = 2**18, scatter splat) against the grid splat.
 
-Each of phases 10-13 logs its seconds, and the script its total.
+14. Gradients on the card: (a) d mean((img - target)^2) with respect to
+    every material float field, the light radiance and the background
+    colour on the stand-in at 64x36 (through K1/K2) against the same on the
+    CPU (the plain walks), and the texels' on Textured; each field within
+    allclose(rtol=1e-3, atol=1e-3 max|g_cpu|); (b) finite differences
+    against autodiff at 1920x1080, depth 2, for a box wall's and the kiss
+    sphere's base_color (tests/test_grad.py's 2e-3 criterion); (c) five
+    optimize steps at 1920x1080, depth 5, on the kiss sphere's base_color and
+    roughness from wrong values (the step runs at the largest of 1920x1080,
+    1440x810 and 960x540 whose peak memory, extrapolated from a 960x540
+    step, fits 85% of the card): ms per step, forward and backward ms,
+    device time, peak memory, the losses (which must fall) and K1/K2/K3
+    launches (the backward launches none); (d) Mixed compiled for the card
+    (K3 on) gives optimize the gradient of the same scene compiled with K3
+    off, nonzero, and K3 is not launched.
+15. The file front end: the stand-in written as OBJ files and a scene XML,
+    with an sRGB 8-bit PNG baseColor (Textured's 1024x1024 image) and an
+    EXR sky; loaded, rendered at 1 spp by render_resumable with a
+    checkpoint, resumed to 2 spp by the CLI into an EXR, and held against
+    render() of the same description built in memory from the decoded
+    arrays.
+16. dist/ in a process group of one on nccl: render_distributed of the
+    stand-in at 1080p against render(), inverse_train_step against phase
+    14's single-process gradient, and the CLI with --distributed.
+
+Each of phases 10-16 logs its seconds, and the script its total.
 Every comparison of radiance holds PERF.md's gate: per-lane radiance within
 rtol 1e-3 / atol 1e-4 on >= 99% of lanes, channel means within 0.5% and ray
 totals within 0.1%.
@@ -91,11 +117,14 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -220,14 +249,14 @@ def _cornell_meshes(D, wall=None):
     ]
 
 
-def stand_in_scene(D, width, height, sampler="independent", integrator=None):
+def stand_in_scene(D, width, height, sampler="independent", integrator=None, depth=DEPTH):
     """Cornell box + lat-long kiss sphere, 1 spp, depth 5, gaussian filter;
     the independent sampler and path_mis unless asked otherwise."""
     sphere = _sphere(
         D, [0.0, 0.7, 0.2], 0.6, SPHERE_NU, SPHERE_NV,
         D.KazenStandard(base_color=(0.6, 0.4, 0.8), metallic=0.3, roughness=0.3),
     )
-    return _box_scene(D, _cornell_meshes(D) + [sphere], width, height, DEPTH, "gaussian",
+    return _box_scene(D, _cornell_meshes(D) + [sphere], width, height, depth, "gaussian",
                       sampler=sampler, integrator=integrator)
 
 
@@ -244,6 +273,15 @@ def _bump_normals(res, rng):
     return (0.5 * n + 0.5).astype(np.float32)
 
 
+def kiss_base_image(rng, res=1024):
+    """Textured's sRGB baseColor: diagonal stripes with seeded noise, (res,
+    res, 3) in [0, 1]."""
+    u = np.linspace(0.0, 1.0, res, dtype=np.float32)
+    stripes = 0.5 + 0.5 * np.sin(2 * np.pi * 24 * (u[:, None] + 0.3 * u[None, :]))
+    base = np.stack([0.2 + 0.6 * stripes, 0.3 + 0.3 * (1 - stripes), 0.7 - 0.4 * stripes], -1)
+    return np.clip(base + 0.1 * rng.rand(res, res, 3), 0.0, 1.0).astype(np.float32)
+
+
 def textured_scene(D, width, height):
     """Textured: the stand-in with this slice's features. The sphere's kiss
     baseColor (sRGB) and roughness are 1024x1024 images; the floor is a
@@ -254,10 +292,7 @@ def textured_scene(D, width, height):
     Every image is made from SEED."""
     rng = np.random.RandomState(SEED)
     res = 1024
-    u = np.linspace(0.0, 1.0, res, dtype=np.float32)
-    stripes = 0.5 + 0.5 * np.sin(2 * np.pi * 24 * (u[:, None] + 0.3 * u[None, :]))
-    base = np.stack([0.2 + 0.6 * stripes, 0.3 + 0.3 * (1 - stripes), 0.7 - 0.4 * stripes], -1)
-    base = np.clip(base + 0.1 * rng.rand(res, res, 3), 0.0, 1.0).astype(np.float32)
+    base = kiss_base_image(rng, res)
     rough = (0.15 + 0.5 * rng.rand(res, res)).astype(np.float32)
     sphere = _sphere(
         D, [0.0, 0.7, 0.2], 0.6, SPHERE_NU, SPHERE_NV,
@@ -747,6 +782,486 @@ def phase_staged(torch, scene, static, spec, wavefront_ms, wavefront_prof, kerne
     }
 
 
+# ---------------------------------------------------------------------------
+# phases 14-16: gradients, the file front end, the distributed layer
+# ---------------------------------------------------------------------------
+
+KISS_MATERIAL = 6  # the stand-in's sphere: the 7th mesh's material row
+INVERSE_SIZES = ((1920, 1080), (1440, 810), (960, 540))  # largest first
+MEMORY_SHARE = 0.85  # of the card's memory a predicted step peak may take
+
+
+def leaf_grads(torch, scene, static, keys, target, loss_fn=None):
+    """{field: gradient on the CPU} of mean((img - target)^2) (or
+    ``loss_fn(img)``) over the parameter groups ``keys``, through one sample
+    pass (sample 0) of the route diff/inverse.py runs."""
+    from kazen_tpu_torch.diff import inverse as inv
+    from kazen_tpu_torch.integrate.render import sampler_spec
+
+    params = inv.as_leaves(inv.get_params(scene, keys))
+    img = inv.render_image(scene, static, sampler_spec(static, scene.device), params, [0])
+    loss = inv.image_loss(img, target) if loss_fn is None else loss_fn(img)
+    loss.backward()
+    flat = dict(params.get("materials", {}))
+    flat.update({k: v for k, v in params.items() if k != "materials"})
+    return {k: (torch.zeros_like(v) if v.grad is None else v.grad).detach().cpu()
+            for k, v in flat.items()}
+
+
+def check_grads(torch, got, want, label, phase):
+    """(a)'s gate per field: allclose(rtol=1e-3, atol=1e-3 * max|want|).
+    Returns the largest |got - want| / (atol + rtol |want|) over fields."""
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k]
+        atol = 1e-3 * w.abs().max().item()
+        ratio = ((g - w).abs() / (atol + 1e-3 * w.abs()).clamp(min=1e-30)).max().item()
+        worst = max(worst, ratio)
+        if not torch.allclose(g, w, rtol=1e-3, atol=atol):
+            raise AssertionError(f"phase {phase}: {label}: gradient of {k} differs: max |g - w| "
+                                 f"{(g - w).abs().max().item():.3g}, max |w| {w.abs().max().item():.3g}")
+    nonzero = sorted(k for k, w in want.items() if w.abs().max().item() > 0)
+    log(f"phase {phase}: {label}: {len(want)} fields within rtol 1e-3 / atol 1e-3 max|g| "
+        f"(worst {worst:.3g} of the limit); nonzero: {nonzero}")
+    return worst
+
+
+def smoke_target(torch, scene, static):
+    """A seeded (H, W, 3) target image on the scene's device."""
+    return torch.as_tensor(
+        0.3 * np.random.RandomState(SEED).rand(static.height, static.width, 3).astype(np.float32),
+        device=scene.device)
+
+
+@contextlib.contextmanager
+def plain_walks(ct):
+    """CPU tensors trace through the plain walks (which K1/K2 equal bit for
+    bit) in place of the brute-force plain versions."""
+    saved = ct.trace_plain, ct.occluded_plain
+    ct.trace_plain, ct.occluded_plain = ct.trace_walk_plain, ct.occluded_walk_plain
+    try:
+        yield
+    finally:
+        ct.trace_plain, ct.occluded_plain = saved
+
+
+@contextlib.contextmanager
+def indexing_gathers():
+    """Material rows gathered by indexing, ``table[idx]``, whose backward
+    sorts the lanes' ids (the first form of MaterialTable.rows; for the
+    comparison in phase 14c only)."""
+    from kazen_tpu_torch.scene.compiler import MaterialTable
+
+    saved = MaterialTable.rows
+    MaterialTable.rows = lambda self, idx: MaterialTable(
+        **{f.name: getattr(self, f.name)[idx] for f in dataclasses.fields(self)})
+    try:
+        yield
+    finally:
+        MaterialTable.rows = saved
+
+
+def timed_step(torch, scene, static):
+    """One forward + backward of an optimize step (sample 0, zero target,
+    the material table): (forward ms, backward ms, peak bytes), by CUDA
+    events."""
+    from kazen_tpu_torch.diff import inverse as inv
+    from kazen_tpu_torch.integrate.render import sampler_spec
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    params = inv.as_leaves(inv.get_params(scene, ("materials",)))
+    ev[0].record()
+    img = inv.render_image(scene, static, sampler_spec(static, scene.device), params, [0])
+    loss = inv.image_loss(img, torch.zeros_like(img))
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]), torch.cuda.max_memory_allocated()
+
+
+def phase_gradients(torch, D, kernels, smi, out_dir):
+    """Phase 14: gradients on the card (a-d)."""
+    from kazen_tpu_torch.accel import cluster_trace as ct
+    from kazen_tpu_torch.diff import inverse as inv
+    from kazen_tpu_torch.integrate.render import sampler_spec
+    from kazen_tpu_torch.scene.compiler import compile_scene
+
+    out = {}
+    # (a) AD on the card (K1/K2) against AD on the CPU (the plain walks)
+    t0 = time.time()
+    small = stand_in_scene(D, SMALL_W, SMALL_H)
+    keys = ("materials", "light_radiance", "bg_color")
+    card = compile_scene(small, device="cuda")
+    cpu = compile_scene(small, device="cpu")
+    g_card = leaf_grads(torch, *card, keys, smoke_target(torch, *card))
+    with plain_walks(ct):
+        g_cpu = leaf_grads(torch, *cpu, keys, smoke_target(torch, *cpu))
+    out["stand_in_worst"] = check_grads(torch, g_card, g_cpu, f"stand-in {SMALL_W}x{SMALL_H} "
+                                        "gradients, card vs CPU", 14)
+    out["stand_in_card_grads"] = g_card
+    small = textured_scene(D, SMALL_W, SMALL_H)
+    card_t = compile_scene(small, device="cuda")
+    cpu_t = compile_scene(small, device="cpu")
+    g_card = leaf_grads(torch, *card_t, ("texels",), smoke_target(torch, *card_t))
+    with plain_walks(ct):
+        g_cpu = leaf_grads(torch, *cpu_t, ("texels",), smoke_target(torch, *cpu_t))
+    out["textured_worst"] = check_grads(torch, g_card, g_cpu, f"Textured {SMALL_W}x{SMALL_H} "
+                                        "texel gradients, card vs CPU", 14)
+    out["a_s"] = time.time() - t0
+    log(f"phase 14a: {out['a_s']:.1f} s")
+
+    # (b) FD against AD at full width, depth 2 (tests/test_grad.py's criterion)
+    t0 = time.time()
+    sc, st = compile_scene(stand_in_scene(D, WIDTH, HEIGHT, depth=2), device="cuda")
+    spec = sampler_spec(st, sc.device)
+
+    def mean_loss(img):
+        return img.double().mean()
+
+    ad = leaf_grads(torch, sc, st, ("materials",), None, mean_loss)["base_color"]
+    base = sc.materials.base_color
+    h = 1e-3
+    fd_rows = []
+    for mi, ch in ((0, 0), (KISS_MATERIAL, 1)):
+        vals = []
+        for sign in (1.0, -1.0):
+            bc = base.clone()
+            bc[mi, ch] += sign * h
+            with torch.no_grad():
+                img = inv.render_image(sc, st, spec, {"materials": {"base_color": bc}}, [0])
+            vals.append(mean_loss(img).item())
+        fd = (vals[0] - vals[1]) / (2 * h)
+        a = ad[mi, ch].item()
+        ok = abs(fd - a) <= 2e-3 * max(abs(fd), abs(a), 1e-3)
+        log(f"phase 14b: base_color[{mi}, {ch}] at {WIDTH}x{HEIGHT} depth 2: FD {fd:.6g}, AD "
+            f"{a:.6g}, rel diff {abs(fd - a) / max(abs(fd), abs(a), 1e-3):.3g} (limit 2e-3)")
+        if not ok:
+            raise AssertionError(f"phase 14b: FD {fd} vs AD {a} on base_color[{mi}, {ch}]")
+        fd_rows.append({"material": mi, "channel": ch, "fd": fd, "ad": a})
+    out["fd_vs_ad"] = fd_rows
+    del sc, st
+    log(f"phase 14b: {time.time() - t0:.1f} s")
+
+    # (c) optimize at full width: the kiss sphere's base_color and roughness
+    # from wrong values, against a target at the true values, sample 0
+    t0 = time.time()
+    total = torch.cuda.get_device_properties(0).total_memory
+    probe_w, probe_h = INVERSE_SIZES[-1]
+    sc, st = compile_scene(stand_in_scene(D, probe_w, probe_h), device="cuda")
+    timed_step(torch, sc, st)  # warm-up: the allocator's pool grows
+    # the gathers of the material table by index_select against indexing,
+    # in turns: the backward's ms of each
+    gathers = {"index_select": [], "indexing": []}
+    for name in ("index_select", "indexing", "indexing", "index_select"):
+        with indexing_gathers() if name == "indexing" else contextlib.nullcontext():
+            fwd_, bwd_, peak_ = timed_step(torch, sc, st)
+        gathers[name].append(bwd_)
+        if name == "index_select":
+            peak_probe = peak_
+    log(f"phase 14c: {probe_w}x{probe_h} step backward ms, material rows by index_select "
+        f"{gathers['index_select']} vs by indexing {gathers['indexing']} (in turns) [{smi}]")
+    out["gathers_backward_ms"] = gathers
+    del sc, st
+    width, height = probe_w, probe_h
+    for w_, h_ in INVERSE_SIZES:
+        if peak_probe * (w_ * h_) / (probe_w * probe_h) < MEMORY_SHARE * total:
+            width, height = w_, h_
+            break
+    log(f"phase 14c: step peak {peak_probe / 1e9:.2f} GB at {probe_w}x{probe_h}; the card "
+        f"holds {total / 1e9:.1f} GB; the step runs at {width}x{height}")
+    true_sc, st = compile_scene(stand_in_scene(D, width, height), device="cuda")
+    spec = sampler_spec(st, true_sc.device)
+    with torch.no_grad():
+        target = inv.render_image(true_sc, st, spec, {}, [0])
+    bc = true_sc.materials.base_color.clone()
+    rough = true_sc.materials.roughness.clone()
+    bc[KISS_MATERIAL] = torch.tensor([0.3, 0.3, 0.3], device=bc.device)
+    rough[KISS_MATERIAL] = 0.6
+    start = dataclasses.replace(true_sc, materials=dataclasses.replace(
+        true_sc.materials, base_color=bc, roughness=rough))
+    def one_step():
+        p = inv.as_leaves(inv.get_params(start, ("materials",)))
+        inv.image_loss(inv.render_image(start, st, spec, p, [0]), target).backward()
+
+    one_step()  # warm-up: the allocator's pool grows to the step's peak
+    # one instrumented step: forward and backward apart, launches of each
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    params = inv.as_leaves(inv.get_params(start, ("materials",)))
+    ev[0].record()
+    loss = inv.image_loss(inv.render_image(start, st, spec, params, [0]), target)
+    ev[1].record()
+    fwd_counts = {name: k.launches for name, k in kernels.items()}
+    loss.backward()
+    ev[2].record()
+    torch.cuda.synchronize()
+    bwd_counts = {name: k.launches - fwd_counts[name] for name, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    fwd_ms, bwd_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    del params, loss
+    if fwd_counts["K1"] <= 0 or fwd_counts["K2"] <= 0 or fwd_counts["K3"]:
+        raise AssertionError(f"phase 14c: forward launches {fwd_counts}")
+    if any(bwd_counts.values()):
+        raise AssertionError(f"phase 14c: the backward launched {bwd_counts}")
+    prof = profile_pass(torch, one_step, out_dir, "inverse_step")
+    # five optimize steps through the entry point
+    steps = 5
+    for k in kernels.values():
+        k.launches = 0
+    s_ev, e_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s_ev.record()
+    res = inv.optimize(start, st, target, param_keys=("materials",), steps=steps,
+                       learning_rate=0.05)
+    e_ev.record()
+    torch.cuda.synchronize()
+    step_ms = s_ev.elapsed_time(e_ev) / steps
+    counts = {name: k.launches for name, k in kernels.items()}
+    if counts != {name: steps * n for name, n in fwd_counts.items()}:
+        raise AssertionError(f"phase 14c: {steps} steps launched {counts}, forward alone "
+                             f"{fwd_counts} a step")
+    losses = [float(x) for x in res.losses]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"phase 14c: losses did not fall: {losses}")
+    got = res.params["materials"]
+    log(f"phase 14c: optimize {width}x{height} depth {DEPTH}, {steps} steps: {step_ms:.1f} ms per "
+        f"step (CUDA events); one step: forward {fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms, device "
+        f"{prof['device_ms']:.1f} ms in {prof['kernel_launches']} launches (busy "
+        f"{prof['busy_share']:.3f}), peak memory {peak / 1e9:.2f} GB [{smi}]")
+    log(f"phase 14c: launches per step K1 {fwd_counts['K1']}, K2 {fwd_counts['K2']}, K3 "
+        f"{fwd_counts['K3']} (forward), backward {bwd_counts}; losses {[f'{x:.6g}' for x in losses]}; "
+        f"kiss base_color {[round(v, 4) for v in got['base_color'][KISS_MATERIAL].tolist()]}, "
+        f"roughness {got['roughness'][KISS_MATERIAL].item():.4f} (true 0.6 0.4 0.8 / 0.3)")
+    for row in prof["top"][:5]:
+        log(f"  {row['device_ms']:9.3f} ms {row['count']:6d}x  {row['name'][:90]}")
+    out["inverse"] = {
+        "width": width, "height": height, "depth": DEPTH, "steps": steps, "ms_per_step": step_ms,
+        "forward_ms": fwd_ms, "backward_ms": bwd_ms, "device_ms_per_step": prof["device_ms"],
+        "launches_per_step": prof["kernel_launches"], "busy_share": prof["busy_share"],
+        "peak_bytes": peak, "probe_peak_bytes": peak_probe, "probe_size": [probe_w, probe_h],
+        "losses": losses, "forward_launches": fwd_counts, "backward_launches": bwd_counts,
+        "top": prof["top"],
+    }
+    del true_sc, start, target, res
+    torch.cuda.empty_cache()
+    log(f"phase 14c: {time.time() - t0:.1f} s")
+
+    # (d) K3's class: a Mixed scene compiled for the card takes the
+    # megakernel in render(), but diff/ must run the wavefront
+    t0 = time.time()
+    mixed = mixed_scene(D, 320, 180)
+    on = compile_scene(mixed, device="cuda")
+    off = compile_scene(mixed, device="cuda", megakernel=False)
+    if not on[1].use_megakernel or off[1].use_megakernel:
+        raise AssertionError("phase 14d: Mixed must take the megakernel unless told not to")
+    for k in kernels.values():
+        k.launches = 0
+    g_on = leaf_grads(torch, *on, ("materials",), smoke_target(torch, *on))
+    inv.optimize(on[0], on[1], smoke_target(torch, *on), steps=1)
+    torch.cuda.synchronize()
+    if kernels["K3"].launches or not kernels["K1"].launches:
+        raise AssertionError(f"phase 14d: launches {[(n, k.launches) for n, k in kernels.items()]}")
+    g_off = leaf_grads(torch, *off, ("materials",), smoke_target(torch, *off))
+    check_grads(torch, g_on, g_off, "Mixed 320x180 compiled with K3 on vs off (K3 launched 0 "
+                "times)", "14d")
+    if not g_on["base_color"].abs().max().item() > 0:
+        raise AssertionError("phase 14d: the gradient is zero")
+    log(f"phase 14d: {time.time() - t0:.1f} s")
+    return out
+
+
+def encode_png8(path, rgb8):
+    """A minimal 8-bit RGB PNG writer (every row filter 0)."""
+    import struct
+    import zlib
+
+    def chunk(tag, data):
+        return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data))
+
+    h, w = rgb8.shape[:2]
+    raw = b"".join(b"\x00" + rgb8[y].tobytes() for y in range(h))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
+        f.write(chunk(b"IEND", b""))
+
+
+def write_obj(path, mesh):
+    """An inline mesh as OBJ: v/vt/vn with floats printed %.9g (float32
+    round-trips exactly), faces with one index for all three."""
+    def rows(tag, a):
+        return "".join(f"{tag} " + " ".join("%.9g" % x for x in r) + "\n" for r in a)
+
+    with open(path, "w") as f:
+        f.write(rows("v", mesh.vertices))
+        f.write(rows("vt", mesh.uvs))
+        f.write(rows("vn", mesh.normals))
+        f.write("".join("f " + " ".join(f"{i + 1}/{i + 1}/{i + 1}" for i in face) + "\n"
+                        for face in mesh.faces))
+
+
+def _xml_color(name, c):
+    return f'<color name="{name}" value="{" ".join(repr(float(x)) for x in c)}"/>'
+
+
+def write_scene_xml(D, desc, out_dir):
+    """The file-front-end stand-in: one OBJ per mesh and a scene XML."""
+    meshes = []
+    for i, m in enumerate(desc.meshes):
+        write_obj(os.path.join(out_dir, f"mesh{i}.obj"), m)
+        b = m.bsdf
+        if isinstance(b, D.Diffuse):
+            bsdf = f'<bsdf type="diffuse">{_xml_color("albedo", b.albedo)}</bsdf>'
+        else:
+            bsdf = (f'<bsdf type="kazenstandard"><texture type="imagetexture" id="baseColor">'
+                    f'<string name="filename" value="{b.base_color.filename}"/></texture>'
+                    f'<texture type="constanttexture" id="metallic">'
+                    f'{_xml_color("color", (b.metallic,) * 3)}</texture>'
+                    f'<texture type="constanttexture" id="roughness">'
+                    f'{_xml_color("color", (b.roughness,) * 3)}</texture></bsdf>')
+        light = ""
+        if m.light is not None:
+            light = (f'<light type="area">{_xml_color("color", m.light.color)}'
+                     f'<float name="intensity" value="{m.light.intensity!r}"/></light>')
+        meshes.append(f'<mesh type="obj"><string name="filename" value="mesh{i}.obj"/>'
+                      f'{bsdf}{light}</mesh>')
+    cam = desc.camera
+    bg = desc.background
+    xml = f"""<?xml version="1.0"?>
+<scene>
+  <integrator type="path_mis"><integer name="maxDepth" value="{desc.integrator.max_depth}"/></integrator>
+  <sampler type="{desc.sampler.kind}"><integer name="sampleCount" value="{desc.sampler.sample_count}"/>
+    <integer name="seed" value="{desc.sampler.seed}"/></sampler>
+  <camera type="perspective">
+    <integer name="width" value="{cam.width}"/><integer name="height" value="{cam.height}"/>
+    <float name="fov" value="{cam.fov!r}"/>
+    <transform name="toWorld"><lookat origin="0, 1, -2.5" target="0, 1, 0" up="0, 1, 0"/></transform>
+    <rfilter type="{desc.rfilter.kind}"/>
+  </camera>
+  {chr(10).join(meshes)}
+  <texture type="background" id="background">
+    <texture type="imagetexture"><string name="filename" value="{bg.texture.filename}"/>
+      <string name="colorspace" value="linear"/></texture>
+    <float name="intensity" value="{bg.intensity!r}"/>
+  </texture>
+</scene>
+"""
+    path = os.path.join(out_dir, "stand_in.xml")
+    with open(path, "w") as f:
+        f.write(xml)
+    return path
+
+
+def files_scene(D, width, height, base, sky):
+    """The stand-in whose kiss sphere has an sRGB baseColor image and whose
+    background is a lat-long sky: ``base`` and ``sky`` are ImageTextures'
+    file names, or data arrays."""
+    def tex(x, **kw):
+        return D.ImageTexture(filename=x, **kw) if isinstance(x, str) else D.ImageTexture(
+            data=x, **kw)
+
+    desc = stand_in_scene(D, width, height)
+    sphere = desc.meshes[-1]
+    desc.meshes[-1] = dataclasses.replace(sphere, bsdf=D.KazenStandard(
+        base_color=tex(base), metallic=0.3, roughness=0.3))
+    desc.background = D.Background(texture=tex(sky, colorspace="linear"), intensity=1.0)
+    return desc
+
+
+def phase_files(torch, D, smi, work_dir):
+    """Phase 15: the stand-in written as OBJ + XML with a PNG baseColor and
+    an EXR sky, rendered through render_resumable and the CLI, against the
+    same description built in memory from the decoded arrays."""
+    from kazen_tpu_torch.cli.main import main as cli_main
+    from kazen_tpu_torch.film import checkpoint
+    from kazen_tpu_torch.film.io import load_exr, save_exr
+    from kazen_tpu_torch.integrate.render import render
+    from kazen_tpu_torch.scene.compiler import compile_scene, read_texture_file
+    from kazen_tpu_torch.scene.xml_io import load_xml
+
+    times = {}
+    t0 = time.time()
+    rng = np.random.RandomState(SEED)
+    png = os.path.join(work_dir, "base.png")
+    encode_png8(png, np.round(kiss_base_image(rng) * 255.0).astype(np.uint8))
+    sky = 0.08 + 0.04 * rng.rand(256, 512, 3).astype(np.float32)
+    sky[64:80, 160:184] = (1.4, 1.3, 1.1)  # below the 1.5 at which a file is read as 8-bit
+    exr = os.path.join(work_dir, "sky.exr")
+    save_exr(exr, sky, compression="zip")
+    written = files_scene(D, WIDTH, HEIGHT, "base.png", "sky.exr")
+    xml = write_scene_xml(D, written, work_dir)
+    times["write_s"] = time.time() - t0
+
+    t0 = time.time()
+    desc = load_xml(xml)
+    scene, static = compile_scene(desc, device="cuda")
+    times["load_compile_s"] = time.time() - t0
+    n_faces = sum(len(m.faces) for m in written.meshes)
+    if int(scene.F.shape[0]) != n_faces or not static.has_image_textures:
+        raise AssertionError(f"phase 15: the file scene has {int(scene.F.shape[0])} faces, "
+                             f"not {n_faces}, or no image texture")
+    ck = os.path.join(work_dir, "ck.npz")
+    t0 = time.time()
+    checkpoint.render_resumable(scene, static, spp=1, checkpoint_path=ck, checkpoint_every=1)
+    torch.cuda.synchronize()
+    times["resumable_s"] = time.time() - t0
+    if checkpoint.load(ck)[1] != 1:
+        raise AssertionError("phase 15: the checkpoint does not stand at sample 1")
+    out_exr = os.path.join(work_dir, "out.exr")
+    t0 = time.time()
+    cli_main([xml, "-o", out_exr, "--spp", "2", "--checkpoint", ck])
+    times["cli_s"] = time.time() - t0
+    got = torch.from_numpy(load_exr(out_exr))
+    mem = files_scene(D, WIDTH, HEIGHT, read_texture_file(png), read_texture_file(exr))
+    want = render(*compile_scene(mem, device="cuda"), spp=2, device="cuda").cpu()
+    err, share = check_li(torch, (got, None), (want, None), "file scene through render_resumable "
+                          "and the CLI (2 spp) vs the in-memory description", 15)
+    equal = (got == want).all(-1).float().mean().item()
+    log(f"phase 15: {equal:.6f} of pixels equal bit for bit; write {times['write_s']:.2f} s, "
+        f"load + compile {times['load_compile_s']:.2f} s, render_resumable (1 spp) "
+        f"{times['resumable_s']:.2f} s, CLI resume to 2 spp {times['cli_s']:.2f} s [{smi}]")
+    return dict(times, max_abs_err=err, share=share, equal=equal, xml=xml)
+
+
+def phase_distributed(torch, D, smi, scene, static, xml, grad_ref, work_dir):
+    """Phase 16: dist/ in a process group of one on nccl."""
+    import torch.distributed as dist
+
+    from kazen_tpu_torch.cli.main import main as cli_main
+    from kazen_tpu_torch.dist.multihost import free_port
+    from kazen_tpu_torch.dist.sharding import inverse_train_step, render_distributed
+    from kazen_tpu_torch.film.io import load_png
+    from kazen_tpu_torch.integrate.render import pixel_grid, render, sampler_spec
+    from kazen_tpu_torch.core import rng
+    from kazen_tpu_torch.scene.compiler import compile_scene
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+                            rank=0)
+    log(f"phase 16: process group of {dist.get_world_size()} on {dist.get_backend()}")
+    img_d = render_distributed(scene, static, spp=1)
+    err, share = check_li(torch, (img_d, None), (render(scene, static, device="cuda"), None),
+                          "render_distributed (scatter splat) vs render() at 1080p", 16)
+    sc, st = compile_scene(stand_in_scene(D, SMALL_W, SMALL_H), device="cuda")
+    px, py = pixel_grid(st, sc.device)
+    step = inverse_train_step(sc, st, sampler_spec(st, sc.device))
+    _, grads = step(sc, smoke_target(torch, sc, st), px, py, 0, rng.advance_constants(0))
+    check_grads(torch, {k: v.cpu() for k, v in grads.items()},
+                {k: v for k, v in grad_ref.items() if k in grads},
+                "inverse_train_step vs phase 14's single-process gradient", 16)
+    out_png = os.path.join(work_dir, "dist.png")
+    cli_main([xml, "-o", out_png, "--spp", "1", "--distributed"])
+    if load_png(out_png).shape != (HEIGHT, WIDTH, 3):
+        raise AssertionError("phase 16: the CLI's distributed render wrote no 1080p image")
+    dist.destroy_process_group()
+    return {"max_abs_err": err, "share": share}
+
+
 def main() -> int:
     import torch
 
@@ -1232,6 +1747,25 @@ def main() -> int:
     textured["chunked_vs_grid"] = {"max_abs_err": err, "share": share}
     save_png(os.path.join(out_dir, "chip_smoke_textured_1080p.png"), img_grid.cpu())
     log(f"phase 13: {time.time() - t_phase:.1f} s")
+    del tex_scene, img_grid, img_chunked
+    torch.cuda.empty_cache()
+
+    # ---- phase 14: gradients and inverse rendering on the card ----------
+    t_phase = time.time()
+    grads = phase_gradients(torch, D, kernels, smi, out_dir)
+    log(f"phase 14: {time.time() - t_phase:.1f} s")
+
+    # ---- phase 15: the file front end, checkpoints and the CLI ------------
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory() as work_dir:
+        files = phase_files(torch, D, smi, work_dir)
+        log(f"phase 15: {time.time() - t_phase:.1f} s")
+
+        # ---- phase 16: the distributed layer at world size 1 on nccl -------
+        t_phase = time.time()
+        distributed = phase_distributed(torch, D, smi, scene, static, files.pop("xml"),
+                                        grads.pop("stand_in_card_grads"), work_dir)
+        log(f"phase 16: {time.time() - t_phase:.1f} s")
 
     mixed_run = passes["Mixed"]
     chosen = mixed_run["variants"][f"refill {mk.REFILL} B={mk.MIN_BLOCKS}"]
@@ -1265,7 +1799,8 @@ def main() -> int:
                    "pass_ms_by_drain": pass_ab, "k3_ptxas": k3_ptxas,
                    "megakernel_passes": passes, "kernels": rows, "profiles": profiles,
                    "staged": staged, "pmj02bn": pmj, "integrators": integrators,
-                   "textured": textured, "total_s": time.time() - t_start},
+                   "textured": textured, "gradients": grads, "files": files,
+                   "distributed": distributed, "total_s": time.time() - t_start},
                   f, indent=1)
     log(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s")
 

@@ -159,10 +159,13 @@ def advance_constants(delta: int) -> Tuple[int, int]:
     return acc_mult, acc_plus
 
 
-def pcg_advance_jump(st: PCGState, a: int, s: int) -> PCGState:
-    """pcg32::advance with jump constants from ``advance_constants``."""
+def pcg_advance_jump(st: PCGState, a, s) -> PCGState:
+    """pcg32::advance with jump constants from ``advance_constants``: Python
+    ints, or int64 lane tensors holding their bits (one jump per lane)."""
     state, inc = st
-    return state * s64(a) + inc * s64(s), inc
+    if not isinstance(a, torch.Tensor):
+        a, s = s64(a), s64(s)
+    return state * a + inc * s, inc
 
 
 def pcg_advance(st: PCGState, delta: int) -> PCGState:

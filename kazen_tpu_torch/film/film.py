@@ -97,24 +97,28 @@ def splat(static, film, pixel_sample, value) -> torch.Tensor:
     return film
 
 
-def _add_shifted(film, a, dy: int, dx: int) -> None:
-    """film[y+dy, x+dx] += a[y, x] where both lie in the image (in place)."""
+def _add_shifted(out, a, dy: int, dx: int) -> None:
+    """out[y+dy, x+dx] += a[y, x] where both lie in ``out`` (in place); out
+    has a's width and at least its rows."""
     h, w = a.shape[:2]
-    film[max(0, dy): h + min(0, dy), max(0, dx): w + min(0, dx)] += a[
-        max(0, -dy): h + min(0, -dy), max(0, -dx): w + min(0, -dx)
+    y_lo, y_hi = max(0, dy), min(out.shape[0], h + dy)
+    out[y_lo:y_hi, max(0, dx): w + min(0, dx)] += a[
+        y_lo - dy: y_hi - dy, max(0, -dx): w + min(0, -dx)
     ]
 
 
-def splat_grid(static, film, jitter, value) -> torch.Tensor:
-    """Accumulate one sample per pixel into ``film`` (updated in place and
-    returned). jitter: (N, 2) sub-pixel positions in [0,1); value: (N, 3)."""
-    h, w = static.height, static.width
+def _splat_rows(static, out, row0: int, jitter, value) -> None:
+    """Add the filtered samples of lanes that are whole pixel rows in
+    row-major order into ``out`` (in place), whose row ``row0`` is the
+    lanes' first row; footprint rows beyond ``out`` are dropped."""
+    w = static.width
+    rows = value.shape[0] // w
     ok = (torch.isfinite(value) & (value >= 0.0)).all(dim=-1)
     value = torch.where(ok[:, None], value, 0.0)
-    contrib = torch.cat([value, torch.ones_like(value[:, :1])], -1).reshape(h, w, 4)
+    contrib = torch.cat([value, torch.ones_like(value[:, :1])], -1).reshape(rows, w, 4)
     # px - x = jitter - 0.5 for every lane
-    jx = (jitter[:, 0] - 0.5).reshape(h, w)
-    jy = (jitter[:, 1] - 0.5).reshape(h, w)
+    jx = (jitter[:, 0] - 0.5).reshape(rows, w)
+    jy = (jitter[:, 1] - 0.5).reshape(rows, w)
     r = filter_radius(static)
     d_lo = int(np.ceil(-(r + 0.5)))
     d_hi = int(np.floor(r + 0.5))
@@ -122,7 +126,44 @@ def splat_grid(static, film, jitter, value) -> torch.Tensor:
         wy = filter_eval(static, dy - jy)
         for dx in range(d_lo, d_hi + 1):
             wx = filter_eval(static, dx - jx)
-            _add_shifted(film, contrib * (wx * wy)[..., None], dy, dx)
+            _add_shifted(out, contrib * (wx * wy)[..., None], row0 + dy, dx)
+
+
+def splat_grid(static, film, jitter, value) -> torch.Tensor:
+    """Accumulate one sample per pixel into ``film`` (updated in place and
+    returned). jitter: (N, 2) sub-pixel positions in [0,1); value: (N, 3)."""
+    _splat_rows(static, film, 0, jitter, value)
+    return film
+
+
+def band_border(static) -> int:
+    """Border rows of a splat band (the largest filter-footprint shift)."""
+    r = filter_radius(static)
+    return max(int(np.floor(r + 0.5)), -int(np.ceil(-(r + 0.5))))
+
+
+def splat_grid_band(static, jitter, value) -> torch.Tensor:
+    """splat_grid for a contiguous row band of the pixel grid (lanes = a
+    whole number of rows in row-major order): the (rows + 2B, W, 4) band
+    accumulation with B border rows above and below, which
+    ``accumulate_band`` adds into the film at the band's row offset. The
+    border rows carry the footprint that spills into the neighbouring
+    bands, so the bands of a frame add up to splat_grid over the grid."""
+    b = band_border(static)
+    rows = value.shape[0] // static.width
+    band = torch.zeros((rows + 2 * b, static.width, 4), dtype=value.dtype, device=value.device)
+    _splat_rows(static, band, b, jitter, value)
+    return band
+
+
+def accumulate_band(static, film, band, row0: int) -> torch.Tensor:
+    """Add a splat band (from splat_grid_band) into ``film`` (in place, and
+    returned) at rows [row0 - B, row0 + rows + B), clipped to the image."""
+    b = band_border(static)
+    y0 = row0 - b
+    lo = max(0, -y0)
+    hi = band.shape[0] - max(0, y0 + band.shape[0] - static.height)
+    film[y0 + lo: y0 + hi] += band[lo:hi]
     return film
 
 
@@ -136,3 +177,4 @@ def to_srgb8(img) -> np.ndarray:
     img = torch.as_tensor(img)
     srgb = torch.clamp(km.to_srgb(torch.clamp(img, 0.0, 1.0)) * 255.0 + 0.5, 0, 255)
     return srgb.cpu().numpy().astype(np.uint8)
+

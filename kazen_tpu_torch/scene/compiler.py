@@ -8,8 +8,9 @@ chains when the scene asks for mip filtering; area lights; a constant or
 textured background with optional importance tables; perspective and
 thinlens cameras; the path_mis, normals, ao, whitted and path_mats
 integrators; the independent, stratified, correlated and pmj02bn samplers.
-Image textures come from ``data`` arrays: a texture read from a file and an
-OBJ mesh raise NotImplementedError (the file front end is ROADMAP item 16).
+Meshes are inline arrays or OBJ files (scene/obj.py); image textures are
+``data`` arrays or PNG/EXR files (film/io.py:load_image, scaled as the
+reference scales what imageio reads). scene/xml_io.py reads a scene file.
 
 The result is ``(SceneArrays, SceneStatic)``: a dataclass of tensors on one
 device and a frozen dataclass of Python values. Cluster trace tables are
@@ -34,8 +35,6 @@ from ..accel import cluster_trace as ct
 from ..core.device import resolve_device
 from ..samplers.streams import KINDS as SAMPLER_KINDS
 from . import description as D
-
-_FRONT_END = "(the XML/OBJ and image-file front end is ROADMAP item 16)"
 
 # Material type ids (shade/bsdf.py dispatches on these); the numbering is
 # kazen_tpu's, so compiled tables compare one to one
@@ -92,10 +91,14 @@ class MaterialTable:
     tex_normal: torch.Tensor
 
     def rows(self, idx) -> "MaterialTable":
-        """Per-lane material rows for material ids ``idx``."""
-        return MaterialTable(
-            **{f.name: getattr(self, f.name)[idx] for f in dataclasses.fields(self)}
-        )
+        """Per-lane material rows for material ids ``idx`` (a 1-D lane
+        tensor). index_select, whose backward adds with index_add_: the
+        backward of indexing sorts the lanes' ids and serializes the runs of
+        equal ones, which many lanes on few materials make slow on CUDA."""
+        return MaterialTable(**{
+            f.name: torch.index_select(getattr(self, f.name), 0, idx)
+            for f in dataclasses.fields(self)
+        })
 
 
 _MATERIAL_INT = {"btype", "tex_base", "tex_metallic", "tex_roughness", "nested", "tex_normal"}
@@ -260,12 +263,10 @@ class _TexturePacker:
         raise TypeError(f"unknown texture node {type(tex).__name__}")
 
     def add(self, tex: D.ImageTexture) -> int:
-        if tex.data is None:
-            raise NotImplementedError(
-                f"image texture file {tex.filename!r}: kazen_tpu_torch takes image "
-                f"textures as data arrays only {_FRONT_END}"
-            )
-        img = np.asarray(tex.data, np.float32)
+        if tex.data is not None:
+            img = np.asarray(tex.data, np.float32)
+        else:
+            img = read_texture_file(tex.filename)
         if img.ndim == 2:
             img = np.repeat(img[..., None], 3, axis=-1)
         img = img[..., :3]
@@ -447,12 +448,27 @@ def _sample_to_camera_matrix(cam: D.PerspectiveCamera) -> np.ndarray:
     return np.linalg.inv(scale @ translate @ perspective).astype(np.float32)
 
 
+def read_texture_file(path: str) -> np.ndarray:
+    """A texture file's pixels as float32, scaled by the reference's rule
+    (kazen_tpu/scene/compiler.py:282-286): divided by 255 when the largest
+    value exceeds 1.5 after the cast to float32, whatever the file's bit
+    depth or format. A gray+alpha image keeps its gray channel (the
+    reference's path fails on it)."""
+    from ..film.io import load_image
+
+    img = np.asarray(load_image(path), np.float32)
+    if img.max() > 1.5:
+        img = img / 255.0
+    if img.ndim == 3 and img.shape[-1] == 2:
+        img = img[..., 0]
+    return img
+
+
 def _mesh_arrays(m: D.Mesh):
     if m.filename is not None:
-        raise NotImplementedError(
-            f"OBJ mesh {m.filename!r}: kazen_tpu_torch takes inline vertices and "
-            f"faces only {_FRONT_END}"
-        )
+        from .obj import load_obj
+
+        return load_obj(m.filename, m.to_world)
     V = np.asarray(m.vertices, np.float32)
     F = np.asarray(m.faces, np.int32)
     N = None if m.normals is None else np.asarray(m.normals, np.float32)
@@ -795,6 +811,13 @@ def _with_megakernel(scene: SceneArrays, static: SceneStatic, megakernel):
     if not ok:
         if megakernel:
             raise ValueError(f"the scene is outside the megakernel's class: {reason}")
+        if static.integrator_kind == "path_mis" and scene.F.shape[0] <= mk.MAX_BRUTE:
+            # a small scene that would otherwise take the megakernel: make
+            # the fall-back visible, as the reference does
+            from ..utils.metrics import LOG
+
+            LOG(f"megakernel fast path declined ({reason}); using the wavefront + "
+                "cluster trace")
         return scene, dataclasses.replace(static, use_megakernel=False, mega_cfg=None)
     enable = scene.device.type == "cuda" if megakernel is None else bool(megakernel)
     scene = dataclasses.replace(scene, mega=mk.pack_tables(scene, static))

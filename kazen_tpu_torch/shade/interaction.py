@@ -35,7 +35,9 @@ class Interaction(NamedTuple):
 
 def prepare_from_rows(rays: Rays, rows: torch.Tensor) -> "tuple[Hit, Interaction]":
     """Shade prep from the trace rows. (t, u, v) are recomputed in closed
-    form against the chosen face, as the reference does."""
+    form against the chosen face, as the reference does, so they carry the
+    rays' gradient; the fetched geometry rows are constants."""
+    rows = rows.detach()
     face_f = rows[3]
     valid = face_f >= 0.0
     face = torch.where(valid, face_f, 0.0).to(torch.int64)

@@ -81,7 +81,7 @@ def sample_area_light(scene, light_idx, ref_p, u_tri, u1, u2) -> LightSample:
 def eval_area_light(scene, light_idx, n, wi):
     """AreaLight::eval (light.cpp:16-19): one-sided radiance."""
     cos_theta = km.dot(n, -wi)
-    rad = scene.light_radiance[light_idx]
+    rad = torch.index_select(scene.light_radiance, 0, light_idx)  # see MaterialTable.rows
     return torch.where((cos_theta > 0.0)[:, None], rad, 0.0)
 
 

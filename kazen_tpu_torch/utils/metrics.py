@@ -1,16 +1,20 @@
-"""Observability: per-pass render metrics and an ETA progress line (the
-reference's progress stack, SURVEY §5).
+"""Observability: per-pass render metrics, an ETA progress line, log lines,
+a timer and profiler tracing (the reference's Timer/LOG/progress stack,
+SURVEY §5).
 
-The port of the parts of ``kazen_tpu/utils/metrics.py`` that render() uses
-(``metrics``, ``verbose``): each pass reports its seconds and rays traced,
-hence rays/s and pixel-samples/s.
+The port of ``kazen_tpu/utils/metrics.py``: each pass reports its seconds
+and rays traced, hence rays/s and pixel-samples/s; ``profiler_trace`` wraps
+torch.profiler where the reference wraps jax.profiler. The streams default
+to sys.stderr as it is when a line is written.
 """
 from __future__ import annotations
 
+import contextlib
+import os
 import sys
 import time
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional
 
 
 @dataclass
@@ -77,3 +81,41 @@ class Progress:
         if done >= self.total:
             self.stream.write("\n")
         self.stream.flush()
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: Optional[str]):
+    """Trace what runs inside under torch.profiler (the host and, where
+    there is one, the card) and write a Chrome trace to
+    ``log_dir/trace.json``; nothing when log_dir is None."""
+    if log_dir is None:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def LOG(msg: str, stream=None):
+    """Timestamped log line (the reference's LOG(), common.h:451-454)."""
+    (stream if stream is not None else sys.stderr).write(
+        f"[kazen-tpu {time.strftime('%H:%M:%S')}] {msg}\n"
+    )
+
+
+@contextlib.contextmanager
+def timed(label: str, stream=None):
+    """Timer (timer.h) with a LOG-style line: the host's wall clock around
+    what runs inside."""
+    t0 = time.time()
+    yield
+    (stream if stream is not None else sys.stderr).write(
+        f"[kazen-tpu] {label}: {(time.time() - t0) * 1000:.1f} ms\n"
+    )

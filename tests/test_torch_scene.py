@@ -166,18 +166,21 @@ FEATURES = ["dielectric", "image_texture", "env_importance", "normals_integrator
 
 
 @pytest.mark.parametrize("case", FEATURES + ["obj"])
-def test_unported_features_raise(case):
-    """What the port still refuses is the file front end (ROADMAP item 16):
-    an OBJ mesh, and an image texture read from a file, also in a scene
-    that uses each feature this slice ported."""
+def test_unported_features_raise(case, tmp_path):
+    """What the port still refuses is a texture file in a format it has no
+    decoder for (JPEG; ROADMAP §C), also in a scene that uses each ported
+    feature, and in one whose mesh is read from an OBJ file."""
     desc = _feature_scene(case)
     m0 = desc.meshes[0]
     if case == "obj":
-        desc.meshes[0] = dataclasses.replace(m0, filename="mesh.obj")
-    else:
-        tex = DT.ImageTexture(filename="albedo.png")
-        desc.meshes[1] = dataclasses.replace(desc.meshes[1], bsdf=DT.Lambertian(albedo=tex))
-    with pytest.raises(NotImplementedError, match="item 16"):
+        obj = tmp_path / "mesh.obj"
+        obj.write_text("v -1 0 -1\nv 1 0 -1\nv 1 0 1\nv -1 0 1\nf 1 2 3 4\n")
+        desc.meshes[0] = dataclasses.replace(m0, filename=str(obj))
+    jpeg = tmp_path / "albedo.jpg"
+    jpeg.write_bytes(b"\xff\xd8\xff\xe0" + bytes(60))
+    tex = DT.ImageTexture(filename=str(jpeg))
+    desc.meshes[1] = dataclasses.replace(desc.meshes[1], bsdf=DT.Lambertian(albedo=tex))
+    with pytest.raises(NotImplementedError, match="JPEG"):
         comp_t.compile_scene(desc, device="cpu")
 
 

@@ -1,7 +1,12 @@
 """Shared helpers of the tests that hold kazen_tpu_torch against kazen_tpu:
-scene descriptions carried across, compiled scenes converted to numpy, and
-the small scenes the tests use."""
+scene descriptions carried across, compiled scenes converted to numpy, the
+small scenes the tests use, a gradient gate, and process groups run with a
+timeout."""
 import dataclasses
+import os
+import subprocess
+import sys
+import time
 
 import numpy as np
 import pytest
@@ -10,6 +15,7 @@ from kazen_tpu.accel import native as native_j
 from kazen_tpu.scene import description as DJ
 from kazen_tpu.scene.compiler import compile_scene as compile_jax
 from kazen_tpu_torch.accel import native as native_t
+from kazen_tpu_torch.dist.multihost import free_port
 from kazen_tpu_torch.scene import description as DT
 from kazen_tpu_torch.scene.compiler import compile_scene as compile_torch
 from kazen_tpu_torch.scene.compiler import scene_from_numpy
@@ -220,3 +226,94 @@ def textured_scene(width=24, height=24, sampler="pmj02bn", spp=4, max_depth=4, i
         normals=DJ.ImageTexture(data=_bump_normals(64, 5), colorspace="linear"),
     ))
     return desc
+
+
+def assert_grads_close(got, want, label=""):
+    """The gradient gate: allclose(rtol=1e-3, atol=1e-3 * max|want|), per
+    field of two dicts of arrays (a None or missing gradient is zeros)."""
+    for k, w in want.items():
+        w = np.asarray(w, np.float64)
+        g = got.get(k)
+        g = np.zeros_like(w) if g is None else np.asarray(g, np.float64)
+        atol = 1e-3 * float(np.abs(w).max()) if w.size else 0.0
+        np.testing.assert_allclose(g, w, rtol=1e-3, atol=atol, err_msg=f"{label} {k}")
+
+
+def run_ranks(script, world, args=(), timeout=240.0):
+    """Run ``python -c script port rank world *args`` as ``world`` processes
+    (the repository and tests/ on their path) and wait for all of them, at
+    most ``timeout`` seconds together: on time-out every process is killed
+    and the test fails. Each must exit 0; returns their outputs."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo, os.path.join(repo, "tests"), os.environ.get("PYTHONPATH", "")]))
+    port = free_port()
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-c", script, str(port), str(rank), str(world), *map(str, args)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for rank in range(world)
+    ]
+    deadline = time.time() + timeout
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(1.0, deadline - time.time()))[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        pytest.fail(f"process group of {world} did not finish within {timeout} s")
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {rank} exited {p.returncode}:\n{out[-3000:]}"
+    return outs
+
+
+def write_xml_scene(tmp_path, extra=""):
+    """The OBJ + XML pair of tests/test_io_cli.py:test_xml_import (a quad
+    turned and scaled by its toWorld, a kiss material with clearcoat), with
+    ``extra`` XML inside <scene>; returns the XML's path."""
+    (tmp_path / "quad.obj").write_text(
+        "v -1 0 -1\nv 1 0 -1\nv 1 0 1\nv -1 0 1\n"
+        "vn 0 1 0\nvn 0 1 0\nvn 0 1 0\nvn 0 1 0\n"
+        "f 1//1 2//2 3//3 4//4\n"
+    )
+    (tmp_path / "light.obj").write_text(
+        "v -0.3 1.9 -0.3\nv 0.3 1.9 -0.3\nv 0.3 1.9 0.3\nv -0.3 1.9 0.3\n"
+        "f 1 2 3 4\n"
+    )
+    xml = tmp_path / "scene.xml"
+    xml.write_text(f"""<?xml version="1.0"?>
+<scene>
+  <integrator type="path_mis"><integer name="maxDepth" value="3"/></integrator>
+  <sampler type="stratified"><integer name="sampleCount" value="4"/></sampler>
+  <camera type="perspective">
+    <integer name="width" value="12"/><integer name="height" value="12"/>
+    <float name="fov" value="60"/>
+    <transform name="toWorld">
+      <lookat origin="0, 1, -3" target="0, 0.5, 0" up="0, 1, 0"/>
+    </transform>
+    <rfilter type="gaussian"><float name="radius" value="2.0"/></rfilter>
+  </camera>
+  <mesh type="obj">
+    <string name="filename" value="quad.obj"/>
+    <transform name="toWorld"><rotate axis="0 1 0" angle="10"/><scale value="1.2"/></transform>
+    <bsdf type="kazenstandard">
+      <texture type="constanttexture" id="baseColor">
+        <color name="color" value="0.6 0.3 0.2"/>
+      </texture>
+      <float name="clearcoat" value="0.3"/>
+    </bsdf>
+  </mesh>
+  <mesh type="obj">
+    <string name="filename" value="light.obj"/>
+    <light type="area">
+      <color name="color" value="1 1 1"/><float name="intensity" value="10"/>
+    </light>
+  </mesh>
+  {extra}
+</scene>
+""")
+    return str(xml)
