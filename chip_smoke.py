@@ -11,12 +11,14 @@ the staged driver, the pmj02bn sampler, the four debug integrators,
 Textured 1080p (the stand-in with image textures, a normal map, the rough*
 models and an importance-sampled sky), inverse rendering (optimize), the
 XML/OBJ/PNG/EXR front end with checkpoints and the CLI, and dist/ on nccl.
+A third path is the lab probes' tables (kazen_tpu_torch/lab/, K4-K6).
 
 Phases (each check raises; the script exits non-zero on the first failure):
 
-0. Build the CUDA trace kernels and the megakernel (nvcc, sm_90a, one
-   library each) and the native BVH builder (g++) from the sources in the
-   checkout, in parallel; log each kernel's registers and spills (K1/K2's
+0. Build the CUDA trace kernels, the megakernel and the lab probes (nvcc,
+   sm_90a, one library each) and the native BVH builder (g++) from the
+   sources in the checkout, in parallel; log each kernel's registers and
+   spills (K1/K2's
    serial and cooperative drains are one kernel, so one line serves both;
    K3's for each instance __launch_bounds__(128, B), B in
    MIN_BLOCKS_CHOICES).
@@ -105,8 +107,21 @@ Phases (each check raises; the script exits non-zero on the first failure):
 16. dist/ in a process group of one on nccl: render_distributed of the
     stand-in at 1080p against render(), inverse_train_step against phase
     14's single-process gradient, and the CLI with --distributed.
+17. The lab probes (phase_lab, which can run alone after phase 0): the
+    launch counts set to 0 before mxu_lab.main() and visit_lab.main() (the
+    originals' tables: K4 at each (precision, M, K), N 1024, 512 reps; K5 on
+    (512, 1024); K6 at its 8 configurations, blocks 506, visits 40, on geo
+    of ones) and read after, each above 0; their ms per launch. Then K4 at
+    every shape against its plain version (max abs err <= 1e-5 x max), its
+    plain and library ms (512 x torch.mm + add_; wall and, under
+    torch.profiler, device time) and bound, and at M=1024,
+    K=128 its ms at 512 reps >= 6x its ms at 64 (in turns); K5 on a seeded
+    uniform (512, 1024): outputs and accepted counts equal, least t within
+    rtol 1e-6; K6 at each configuration on a seeded geo where tests are
+    accepted: rows, counts and fetches (0) equal, least t within rtol 1e-6,
+    plain ms and bound.
 
-Each of phases 10-16 logs its seconds, and the script its total.
+Each of phases 10-17 logs its seconds, and the script its total.
 Every comparison of radiance holds PERF.md's gate: per-lane radiance within
 rtol 1e-3 / atol 1e-4 on >= 99% of lanes, channel means within 0.5% and ray
 totals within 0.1%.
@@ -611,9 +626,9 @@ def k3_variants(torch, mk, sc, st, o, d, stream, ref, label, smi):
     return out
 
 
-def profile_pass(torch, fn, out_dir, name, top=15):
-    """One call of ``fn`` under torch.profiler: wall ms, the device time
-    summed over every kernel, and the kernels that take the most of it."""
+def device_times(torch, fn):
+    """One call of ``fn`` (after a warm-up call) under torch.profiler: (wall
+    ms, {kernel name: (device ms, launches)})."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -623,14 +638,18 @@ def profile_pass(torch, fn, out_dir, name, top=15):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [
-        e for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0
-    ]
     by_name = {}
-    for e in kernels:
-        ms, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + e.device_time_total / 1e3, n + 1)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.device_time_total / 1e3, n + 1)
+    return wall_ms, by_name
+
+
+def profile_pass(torch, fn, out_dir, name, top=15):
+    """One call of ``fn`` under torch.profiler: wall ms, the device time
+    summed over every kernel, and the kernels that take the most of it."""
+    wall_ms, by_name = device_times(torch, fn)
     device_ms = sum(ms for ms, _ in by_name.values())
     trace_ms = sum(ms for k, (ms, _) in by_name.items()
                    if "nearest_kernel" in k or "any_hit_kernel" in k)
@@ -645,7 +664,7 @@ def profile_pass(torch, fn, out_dir, name, top=15):
         "busy_share": device_ms / wall_ms,
         "trace_kernel_ms": trace_ms,
         "megakernel_ms": mega_ms,
-        "kernel_launches": len(kernels),
+        "kernel_launches": sum(n for _, n in by_name.values()),
         "top": [{"name": n, "device_ms": ms, "count": c} for n, (ms, c) in ranked[:top]],
     }
 
@@ -1262,12 +1281,214 @@ def phase_distributed(torch, D, smi, scene, static, xml, grad_ref, work_dir):
     return {"max_abs_err": err, "share": share}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the lab probes K4-K6
+# ---------------------------------------------------------------------------
+
+PEAK_BF16_FLOPS = 989e12  # dense bf16 tensor cores (NVIDIA data sheet)
+# f32 operations of one acceptance chain, det to tt, as lab/csrc/lab.cu
+# writes it: the sign's select, four products by it, three subtractions,
+# four minima, two compares, the reciprocal, its product and tt's select;
+# K5 adds tt + r and its running minimum
+CHAIN_FLOPS = 17
+REPS_SHORT = 64  # K4 at 512 reps must take >= REPS_SCALING x its time at 64
+REPS_SCALING = 6.0
+
+
+def mm_has_out_dtype(torch) -> bool:
+    """Whether this torch's torch.mm takes out_dtype (bf16 operands, f32
+    result) on the card."""
+    a = torch.ones((64, 64), dtype=torch.bfloat16, device="cuda")
+    try:
+        torch.mm(a, a, out_dtype=torch.float32)
+    except (TypeError, RuntimeError, NotImplementedError):
+        return False
+    return True
+
+
+def library_mm(torch, w, f, reps, kind, out_dtype):
+    """K4's yardstick, never called by the port: the sum over reps of W^T f
+    as PyTorch computes it, reps x (torch.mm + add_), f32 operands with TF32
+    off for HIGHEST, bf16 operands otherwise (f32 products where torch.mm
+    takes out_dtype, else its bf16 result cast to f32)."""
+    a, b = w.t(), f
+    if kind != "HIGHEST":
+        a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    mm = ((lambda: torch.mm(a, b, out_dtype=torch.float32)) if kind != "HIGHEST" and out_dtype
+          else (lambda: torch.mm(a, b).to(torch.float32)))
+
+    def run():
+        acc = torch.zeros((w.shape[1], f.shape[1]), dtype=torch.float32, device=w.device)
+        for _ in range(reps):
+            acc.add_(mm())
+        return acc
+
+    return run
+
+
+def lab_check_geo(torch, qp, kt, bf16, dev):
+    """K6's check input: seeded, uniform in [-1, 1] for qp = 4 and in
+    [-5, -1] for qp = 1, where the quantities are D, D+16, D+32, D+48 (D a
+    sum of 16 values) and a test is accepted only for D in [-80, -48]."""
+    from kazen_tpu_torch.lab import visit_lab
+
+    lo, hi = (-1.0, 1.0) if qp == 4 else (-5.0, -1.0)
+    g = np.random.default_rng(SEED).uniform(lo, hi, visit_lab.geo_shape(qp, kt))
+    return torch.from_numpy(g.astype(np.float32)).to(dev, torch.bfloat16 if bf16 else torch.float32)
+
+
+def lab_bound(flops_by_peak, nbytes):
+    """(bound ms, what bounds it): the larger of bytes over the memory rate
+    and the operations over their type's peak."""
+    t_ops = sum(fl / peak for fl, peak in flops_by_peak) * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "bytes" if t_bytes > t_ops else "operations"
+
+
+def phase_lab(torch, smi):
+    """Phase 17: the lab probes K4-K6 (kazen_tpu_torch/lab/) on the card.
+    Their main path is the two probes' tables (mxu_lab.main, visit_lab.main),
+    driven with the counts set to 0 before and read after; then each kernel
+    against its plain version, ms, bound, plain ms and (K4) library ms."""
+    from kazen_tpu_torch.lab import mxu_lab, visit_lab
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the default, stated
+    kernels = {"K4": mxu_lab.MM_PROBE, "K5": mxu_lab.CHAIN_PROBE, "K6": visit_lab.DRAIN_PROBE}
+    for k in kernels.values():
+        k.launches = 0
+    mm_rows, chain_row = mxu_lab.main()
+    drain_rows = visit_lab.main()
+    launches = {name: k.launches for name, k in kernels.items()}
+    log(f"phase 17: the probes' tables launched {launches}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"phase 17: a lab kernel was not launched: {launches}")
+
+    # K4 at every shape of the table
+    rng = np.random.default_rng(SEED)
+    out_dtype = mm_has_out_dtype(torch)
+    for row in mm_rows:
+        kind, m, k, n, reps = row["kind"], row["M"], row["K"], row["N"], row["reps"]
+        dt = torch.bfloat16 if kind == "bf16-in" else torch.float32
+        w = torch.from_numpy(rng.random((k, m), dtype=np.float32)).to(dev, dt)
+        f = torch.from_numpy(rng.random((k, n), dtype=np.float32)).to(dev, dt)
+        prec = "HIGHEST" if kind == "HIGHEST" else "DEFAULT"
+        got = mxu_lab.mm_probe_cuda(w, f, reps, prec)
+        want = mxu_lab.mm_probe_plain(w, f, reps, prec)
+        err = (got - want).abs().max().item()
+        top = want.abs().max().item()
+        if not err <= 1e-5 * top:
+            raise AssertionError(f"phase 17: K4 {kind} M={m} K={k}: max abs err {err} > 1e-5 x {top}")
+        lib_fn = library_mm(torch, w, f, reps, kind, out_dtype)
+        lib_err = (lib_fn() - want).abs().max().item()
+        lib_device_ms = sum(ms for ms, _ in device_times(torch, lib_fn)[1].values())
+        peak = PEAK_F32_FLOPS if kind == "HIGHEST" else PEAK_BF16_FLOPS
+        row.update(max_abs_err=err, rel_err=err / top, library_err=lib_err,
+                   library_device_ms=lib_device_ms,
+                   plain_ms=cuda_ms(torch, lambda: mxu_lab.mm_probe_plain(w, f, reps, prec), 3),
+                   library_ms=cuda_ms(torch, lib_fn, 3))
+        row["bound_ms"], row["bound_by"] = lab_bound(
+            [(2.0 * m * k * n * reps, peak)], (m + n) * k * w.element_size() + m * n * 4)
+        log(f"phase 17: K4 {kind} M={m} K={k} N={n} reps {reps}: {row['ms']:.4f} ms per launch, "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), plain {row['plain_ms']:.3f} ms, "
+            f"library {row['library_ms']:.3f} ms ({lib_device_ms:.3f} ms of device time under "
+            f"torch.profiler, max abs err {lib_err:.3g}); kernel max abs err "
+            f"{err:.3g} = {err / top:.3g} x max [{smi}]")
+        if (m, k) == (1024, 128):
+            # each rep computes the product anew: 512 reps cost >= 6x 64 reps
+            turns = [cuda_ms(torch, lambda r=r: mxu_lab.mm_probe_cuda(w, f, r, prec), 5)
+                     for r in (reps, REPS_SHORT, REPS_SHORT, reps)]
+            row["reps_ratio"] = (turns[0] + turns[3]) / (turns[1] + turns[2])
+            log(f"phase 17: K4 {kind} M={m} K={k}: {reps} reps / {REPS_SHORT} reps = "
+                f"{row['reps_ratio']:.3f} (in turns: {[round(t, 4) for t in turns]} ms) [{smi}]")
+            if row["reps_ratio"] < REPS_SCALING:
+                raise AssertionError(f"phase 17: K4 {kind}: {reps} reps take only "
+                                     f"{row['reps_ratio']:.3f}x {REPS_SHORT} reps")
+    log(f"phase 17: K4's yardstick: torch.mm {'with' if out_dtype else 'without'} out_dtype "
+        f"(bf16 operands, {'f32' if out_dtype else 'bf16'} products out)")
+
+    # K5 on the original's input: uniform in [0, 1), (512, 1024)
+    n = chain_row["N"]
+    a = torch.from_numpy(rng.random((4 * mxu_lab.CHAIN_ROWS, n), dtype=np.float32)).to(dev)
+    got = mxu_lab.chain_probe_cuda(a, diag=True)
+    want = mxu_lab.chain_probe_plain(a, diag=True)
+    t_err = ((got[2] - want[2]).abs() / want[2].abs()).max().item()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]) and t_err <= 1e-6):
+        raise AssertionError(f"phase 17: K5 differs from its plain version (least t rel {t_err})")
+    chain_row.update(
+        max_abs_err=(got[0] - want[0]).abs().max().item(), tmin_rel_err=t_err,
+        accepted=int(got[1].sum().item()),
+        plain_ms=cuda_ms(torch, lambda: mxu_lab.chain_probe_plain(a), 3))
+    chain_row["bound_ms"], chain_row["bound_by"] = lab_bound(
+        [(mxu_lab.CHAIN_ROWS * n * mxu_lab.CHAIN_REPS * (CHAIN_FLOPS + 2), PEAK_F32_FLOPS)],
+        5 * mxu_lab.CHAIN_ROWS * n * 4)
+    log(f"phase 17: K5 (128x{n}, {mxu_lab.CHAIN_REPS} reps): {chain_row['ms'] * 1e3:.2f} us per "
+        f"launch, bound {chain_row['bound_ms'] * 1e3:.3f} us ({chain_row['bound_by']}; below the "
+        f"launch latency), plain {chain_row['plain_ms']:.3f} ms; outputs and accepted counts "
+        f"equal ({chain_row['accepted']} accepted), least t within {t_err:.3g} [{smi}]")
+
+    # K6 at each configuration: kernel against plain on a seeded geo
+    for row in drain_rows:
+        qp, kt, bf16 = row["qp"], row["K"], row["bf16"]
+        args = (row["visits"], qp, kt, row["precision"], row["fetch"], row["dma"], row["blocks"])
+        geo = lab_check_geo(torch, qp, kt, bf16, dev)
+        got = visit_lab.drain_cuda(geo, *args, diag=True)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = visit_lab.drain_plain(geo, *args, diag=True)
+        end.record()
+        torch.cuda.synchronize()
+        t_err = ((got[2] - want[2]).abs() / want[2].abs()).max().item()
+        same = [torch.equal(x, y) for x, y in zip(got, want)]
+        if not (same[0] and same[1] and same[3] and t_err <= 1e-6) or got[3].any():
+            raise AssertionError(f"phase 17: K6 {row['label']}: rows/count/fetches equal {same}, "
+                                 f"least t rel {t_err}, fetches {int(got[3].sum())}")
+        lanes_visits = row["blocks"] * visit_lab.BLOCK * row["visits"]
+        macs = (4 * 16 * kt if qp == 1 else 64 * 4 * kt) * lanes_visits
+        peak = PEAK_BF16_FLOPS if row["precision"] == "DEFAULT" or bf16 else PEAK_F32_FLOPS
+        nbytes = (geo.numel() + 16 * qp * visit_lab.BLOCK) * geo.element_size() + got[0].numel() * 4
+        row["bound_ms"], row["bound_by"] = lab_bound(
+            [(2.0 * macs, peak), (CHAIN_FLOPS * kt * lanes_visits, PEAK_F32_FLOPS)], nbytes)
+        row.update(max_abs_err=(got[0] - want[0]).abs().max().item(), tmin_rel_err=t_err,
+                   accepted=int(got[1].sum().item()), plain_ms=start.elapsed_time(end))
+        log(f"phase 17: K6 {row['label']}: {row['ms']:.3f} ms per launch, "
+            f"{row['us_per_visit']:.4f} us per visit of a block, bound {row['bound_ms']:.3f} ms "
+            f"({row['bound_by']}), plain {row['plain_ms']:.1f} ms; rows and counts equal "
+            f"({row['accepted']} accepted), least t within {t_err:.3g}, fetches 0 [{smi}]")
+        del got, want
+
+    def kernel_row(name, source, first, checks, **extra):
+        k = kernels[name]
+        return {
+            "name": k.name, "route": "cuda", "source": source, "replaces": k.replaces,
+            "launches": launches[name], "max_abs_err": max(c["max_abs_err"] for c in checks),
+            "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"], "library_ms": first.get("library_ms"), **extra,
+        }
+
+    src = "kazen_tpu_torch/lab/csrc/lab.cu"
+    head = next(r for r in mm_rows if (r["kind"], r["M"], r["K"]) == ("HIGHEST", 1024, 128))
+    rows = [
+        kernel_row("K4", src, head, mm_rows, shape="HIGHEST M=1024 K=128 N=1024 reps 512",
+                   library="512 x (torch.mm + add_)", library_out_dtype=out_dtype,
+                   library_device_ms=head["library_device_ms"],
+                   ms_by_shape={f"{r['kind']} M={r['M']} K={r['K']}": r["ms"] for r in mm_rows}),
+        kernel_row("K5", src, chain_row, [chain_row], shape="(512, 1024), 32 reps"),
+        kernel_row("K6", src, drain_rows[0], drain_rows,
+                   shape=f"{drain_rows[0]['label']}, blocks 506, visits 40",
+                   ms_by_config={r["label"]: r["ms"] for r in drain_rows}),
+    ]
+    return rows, {"launches": launches, "mm": mm_rows, "chain": chain_row, "drain": drain_rows}
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    from kazen_tpu_torch import lab
     from kazen_tpu_torch.accel import cluster_trace as ct
     from kazen_tpu_torch.accel.native import library_path as bvh_library
     from kazen_tpu_torch.integrate import megakernel as mk
@@ -1282,16 +1503,21 @@ def main() -> int:
 
     # ---- phase 0: build -------------------------------------------------
     t_start = t0 = time.time()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         f_trace = pool.submit(ct.build_library)
         f_mega = pool.submit(mk.build_library)
+        f_lab = pool.submit(lab.build_library)
         f_bvh = pool.submit(bvh_library)
-        nvcc_out = {"trace": f_trace.result()[1], "megakernel": f_mega.result()[1]}
+        nvcc_out = {"trace": f_trace.result()[1], "megakernel": f_mega.result()[1],
+                    "lab": f_lab.result()[1]}
         f_bvh.result()
     build_s = time.time() - t0
     smi = nvidia_smi_line()
-    log(f"phase 0: built the trace kernels, the megakernel and the BVH builder in "
-        f"{build_s:.1f} s")
+    log(f"phase 0: built the trace kernels, the megakernel, the lab probes and the BVH builder "
+        f"in {build_s:.1f} s")
+    for line in nvcc_out["lab"].splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            log(f"  ptxas (lab): {line.strip()}")
     for line in nvcc_out["trace"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas (trace): {line.strip()}")
@@ -1767,6 +1993,11 @@ def main() -> int:
                                         grads.pop("stand_in_card_grads"), work_dir)
         log(f"phase 16: {time.time() - t_phase:.1f} s")
 
+    # ---- phase 17: the lab probes K4-K6 ---------------------------------------
+    t_phase = time.time()
+    lab_rows, lab_out = phase_lab(torch, smi)
+    log(f"phase 17: {time.time() - t_phase:.1f} s")
+
     mixed_run = passes["Mixed"]
     chosen = mixed_run["variants"][f"refill {mk.REFILL} B={mk.MIN_BLOCKS}"]
     rows.append({
@@ -1794,13 +2025,15 @@ def main() -> int:
         "ms_by_variant": {k_: v["ms"] for k_, v in mixed_run["variants"].items()},
         "toy_ms_by_variant": {k_: v["ms"] for k_, v in passes["Toy"]["variants"].items()},
     })
+    rows.extend(lab_rows)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "pass_ms": pass_ms, "rays_per_pass": nrays_stand_in,
                    "pass_ms_by_drain": pass_ab, "k3_ptxas": k3_ptxas,
                    "megakernel_passes": passes, "kernels": rows, "profiles": profiles,
                    "staged": staged, "pmj02bn": pmj, "integrators": integrators,
                    "textured": textured, "gradients": grads, "files": files,
-                   "distributed": distributed, "total_s": time.time() - t_start},
+                   "distributed": distributed, "lab": lab_out,
+                   "total_s": time.time() - t_start},
                   f, indent=1)
     log(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s")
 
