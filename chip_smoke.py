@@ -108,18 +108,23 @@ Phases (each check raises; the script exits non-zero on the first failure):
     stand-in at 1080p against render(), inverse_train_step against phase
     14's single-process gradient, and the CLI with --distributed.
 17. The lab probes (phase_lab, which can run alone after phase 0): the
-    launch counts set to 0 before mxu_lab.main() and visit_lab.main() (the
+    lab kernels' registers and spills (none allowed); K6's wgmma layout
+    check (its DEFAULT and bf16 configurations and K = 100 and 36, 8 blocks
+    of 7 visits, on integer geo in [-8, 8], where every sum is exact: rows,
+    counts and fetches equal, least t within rtol 1e-6); then the launch
+    counts set to 0 before mxu_lab.main() and visit_lab.main() (the
     originals' tables: K4 at each (precision, M, K), N 1024, 512 reps; K5 on
     (512, 1024); K6 at its 8 configurations, blocks 506, visits 40, on geo
     of ones) and read after, each above 0; their ms per launch. Then K4 at
-    every shape against its plain version (max abs err <= 1e-5 x max), its
-    plain and library ms (512 x torch.mm + add_; wall and, under
-    torch.profiler, device time) and bound, and at M=1024,
-    K=128 its ms at 512 reps >= 6x its ms at 64 (in turns); K5 on a seeded
-    uniform (512, 1024): outputs and accepted counts equal, least t within
-    rtol 1e-6; K6 at each configuration on a seeded geo where tests are
-    accepted: rows, counts and fetches (0) equal, least t within rtol 1e-6,
-    plain ms and bound.
+    every shape and at K = 8 and 40 (M = 128, each precision) against its
+    plain version (max abs err <= 1e-5 x max), its TFLOP/s, plain and
+    library ms (512 x torch.mm + add_; wall and, under torch.profiler,
+    device time) and bound, and at M=1024, K=128 its ms at 512 reps >= 6x
+    its ms at 64 (in turns); K5 on a seeded uniform (512, 1024): outputs
+    and accepted counts equal, least t within rtol 1e-6; K6 at each
+    configuration on a seeded geo where tests are accepted: rows, counts
+    and fetches (0) equal, least t within rtol 1e-6, its design, TFLOP/s
+    of products, plain ms and bound.
 
 Each of phases 10-17 logs its seconds, and the script its total.
 Every comparison of radiance holds PERF.md's gate: per-lane radiance within
@@ -1326,6 +1331,12 @@ def library_mm(torch, w, f, reps, kind, out_dtype):
     return run
 
 
+def drain_design(precision, bf16) -> str:
+    """K6's design for a precision and geo type, as kz_drain_probe picks it:
+    rounded (bf16) operands on the tensor cores, f32 ones on the CUDA cores."""
+    return "wgmma bf16" if precision == "DEFAULT" or bf16 else "simt f32"
+
+
 def lab_check_geo(torch, qp, kt, bf16, dev):
     """K6's check input: seeded, uniform in [-1, 1] for qp = 4 and in
     [-5, -1] for qp = 1, where the quantities are D, D+16, D+32, D+48 (D a
@@ -1337,6 +1348,53 @@ def lab_check_geo(torch, qp, kt, bf16, dev):
     return torch.from_numpy(g.astype(np.float32)).to(dev, torch.bfloat16 if bf16 else torch.float32)
 
 
+def lab_registers(ptxas: str) -> dict:
+    """{kernel instance: (registers, spill-store bytes)} of lab/csrc/lab.cu
+    from ptxas's report (empty when nothing was compiled)."""
+    types = {"f": "f32", "13__nv_bfloat16": "bf16"}
+    found, cur = {}, None
+    for line in ptxas.splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"(mm_kernel|chain_kernel|drain_simt_kernel|drain_tc_kernel)"
+                          r"(?:I(\w*?)E)?E", line)
+            cur = None
+            if m:
+                args = [n or types[t] for n, t in
+                        re.findall(r"Li(\d+)|(13__nv_bfloat16|f)", m.group(2) or "")]
+                cur = m.group(1) + (f"<{', '.join(args)}>" if args else "")
+            continue
+        if cur is None:
+            continue
+        regs, spill = found.get(cur, (0, 0))
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            regs = int(m.group(1))
+        found[cur] = (regs, spill)
+    return found
+
+
+def lab_int_geo(torch, qp, kt, bf16, dev):
+    """K6's layout check input: seeded integers in [-8, 8], so every product
+    and every sum over the F rows is exact in bf16 and f32, in any order."""
+    from kazen_tpu_torch.lab import visit_lab
+
+    g = np.random.default_rng(SEED).integers(-8, 9, visit_lab.geo_shape(qp, kt))
+    return torch.from_numpy(g.astype(np.float32)).to(dev, torch.bfloat16 if bf16 else torch.float32)
+
+
+def drain_same(torch, got, want):
+    """K6's gate: rows, accepted counts and fetches equal, least t within
+    rtol 1e-6 (rcp.approx against the exact reciprocal). Returns (ok, which
+    are equal, least t's relative error)."""
+    diff = (got[2] - want[2]).abs()
+    t_err = torch.where(diff == 0, 0.0, diff / want[2].abs()).max().item()  # 0 where both are 0
+    same = [torch.equal(x, y) for x, y in zip(got, want)]
+    return same[0] and same[1] and same[3] and t_err <= 1e-6, same, t_err
+
+
 def lab_bound(flops_by_peak, nbytes):
     """(bound ms, what bounds it): the larger of bytes over the memory rate
     and the operations over their type's peak."""
@@ -1345,15 +1403,39 @@ def lab_bound(flops_by_peak, nbytes):
     return max(t_ops, t_bytes), "bytes" if t_bytes > t_ops else "operations"
 
 
-def phase_lab(torch, smi):
+def phase_lab(torch, smi, ptxas=""):
     """Phase 17: the lab probes K4-K6 (kazen_tpu_torch/lab/) on the card.
-    Their main path is the two probes' tables (mxu_lab.main, visit_lab.main),
-    driven with the counts set to 0 before and read after; then each kernel
-    against its plain version, ms, bound, plain ms and (K4) library ms."""
+    First K6's tensor-core layout check; then their main path, the two
+    probes' tables (mxu_lab.main, visit_lab.main), driven with the counts set
+    to 0 before and read after; then each kernel against its plain version,
+    ms, bound, plain ms and (K4) library ms. ``ptxas`` is the lab library's
+    compiler report, for the registers and spills of each instance."""
     from kazen_tpu_torch.lab import mxu_lab, visit_lab
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False  # the default, stated
+    regs = lab_registers(ptxas)
+    for name, (n_regs, spill) in sorted(regs.items()):
+        log(f"phase 17: {name}: {n_regs} registers, {spill} bytes of spill stores")
+    if any(spill for _, spill in regs.values()):
+        raise AssertionError(f"phase 17: a lab kernel spills: {regs}")
+
+    # K6's wgmma layout check: every DEFAULT and bf16 configuration, and K
+    # not a multiple of the 64-test chunk, on integer geo (exact sums), 8
+    # blocks of 7 visits
+    checks = [c[1:] for c in visit_lab.CONFIGS if c[3] == "DEFAULT" or c[4]]
+    checks += [(1, 100, "DEFAULT", False, True, True), (4, 36, "DEFAULT", True, True, True)]
+    for qp, kt, prec, bf16, fetch, dma in checks:
+        geo = lab_int_geo(torch, qp, kt, bf16, dev)
+        args = (7, qp, kt, prec, fetch, dma, 8)
+        ok, same, t_err = drain_same(torch, visit_lab.drain_cuda(geo, *args, diag=True),
+                                     visit_lab.drain_plain(geo, *args, diag=True))
+        if not ok:
+            raise AssertionError(f"phase 17: K6 layout check qp={qp} K={kt} {prec} bf16={bf16}: "
+                                 f"rows/count/tmin/fetches equal {same}, least t rel {t_err}")
+    log(f"phase 17: K6's wgmma layout check: {len(checks)} configurations on integer geo in "
+        f"[-8, 8]: rows, counts and fetches equal, least t within rtol 1e-6 [{smi}]")
+
     kernels = {"K4": mxu_lab.MM_PROBE, "K5": mxu_lab.CHAIN_PROBE, "K6": visit_lab.DRAIN_PROBE}
     for k in kernels.values():
         k.launches = 0
@@ -1364,15 +1446,20 @@ def phase_lab(torch, smi):
     if min(launches.values()) < 1:
         raise AssertionError(f"phase 17: a lab kernel was not launched: {launches}")
 
-    # K4 at every shape of the table
+    # K4 at every shape of the table, then at K = 8 and 40 (not multiples of
+    # 16), M = 128, each precision
     rng = np.random.default_rng(SEED)
     out_dtype = mm_has_out_dtype(torch)
-    for row in mm_rows:
+    padded = [{"kind": kind, "M": 128, "K": k, "N": mxu_lab.N, "reps": mxu_lab.REPS}
+              for kind in ("HIGHEST", "DEFAULT", "bf16-in") for k in (8, 40)]
+    for row in mm_rows + padded:
         kind, m, k, n, reps = row["kind"], row["M"], row["K"], row["N"], row["reps"]
         dt = torch.bfloat16 if kind == "bf16-in" else torch.float32
         w = torch.from_numpy(rng.random((k, m), dtype=np.float32)).to(dev, dt)
         f = torch.from_numpy(rng.random((k, n), dtype=np.float32)).to(dev, dt)
         prec = "HIGHEST" if kind == "HIGHEST" else "DEFAULT"
+        if "ms" not in row:
+            row["ms"] = cuda_ms(torch, lambda: mxu_lab.mm_probe_cuda(w, f, reps, prec), 5)
         got = mxu_lab.mm_probe_cuda(w, f, reps, prec)
         want = mxu_lab.mm_probe_plain(w, f, reps, prec)
         err = (got - want).abs().max().item()
@@ -1389,8 +1476,11 @@ def phase_lab(torch, smi):
                    library_ms=cuda_ms(torch, lib_fn, 3))
         row["bound_ms"], row["bound_by"] = lab_bound(
             [(2.0 * m * k * n * reps, peak)], (m + n) * k * w.element_size() + m * n * 4)
+        row["tflops"] = 2.0 * m * k * n * reps / row["ms"] / 1e9
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         log(f"phase 17: K4 {kind} M={m} K={k} N={n} reps {reps}: {row['ms']:.4f} ms per launch, "
-            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), plain {row['plain_ms']:.3f} ms, "
+            f"{row['tflops']:.2f} TFLOP/s, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+            f"{row['bound_share']:.3f} of it), plain {row['plain_ms']:.3f} ms, "
             f"library {row['library_ms']:.3f} ms ({lib_device_ms:.3f} ms of device time under "
             f"torch.profiler, max abs err {lib_err:.3g}); kernel max abs err "
             f"{err:.3g} = {err / top:.3g} x max [{smi}]")
@@ -1439,9 +1529,8 @@ def phase_lab(torch, smi):
         want = visit_lab.drain_plain(geo, *args, diag=True)
         end.record()
         torch.cuda.synchronize()
-        t_err = ((got[2] - want[2]).abs() / want[2].abs()).max().item()
-        same = [torch.equal(x, y) for x, y in zip(got, want)]
-        if not (same[0] and same[1] and same[3] and t_err <= 1e-6) or got[3].any():
+        ok, same, t_err = drain_same(torch, got, want)
+        if not ok or got[3].any():
             raise AssertionError(f"phase 17: K6 {row['label']}: rows/count/fetches equal {same}, "
                                  f"least t rel {t_err}, fetches {int(got[3].sum())}")
         lanes_visits = row["blocks"] * visit_lab.BLOCK * row["visits"]
@@ -1451,11 +1540,14 @@ def phase_lab(torch, smi):
         row["bound_ms"], row["bound_by"] = lab_bound(
             [(2.0 * macs, peak), (CHAIN_FLOPS * kt * lanes_visits, PEAK_F32_FLOPS)], nbytes)
         row.update(max_abs_err=(got[0] - want[0]).abs().max().item(), tmin_rel_err=t_err,
-                   accepted=int(got[1].sum().item()), plain_ms=start.elapsed_time(end))
-        log(f"phase 17: K6 {row['label']}: {row['ms']:.3f} ms per launch, "
-            f"{row['us_per_visit']:.4f} us per visit of a block, bound {row['bound_ms']:.3f} ms "
-            f"({row['bound_by']}), plain {row['plain_ms']:.1f} ms; rows and counts equal "
-            f"({row['accepted']} accepted), least t within {t_err:.3g}, fetches 0 [{smi}]")
+                   accepted=int(got[1].sum().item()), plain_ms=start.elapsed_time(end),
+                   design=drain_design(row["precision"], bf16),
+                   tflops=2.0 * macs / row["ms"] / 1e9, bound_share=row["bound_ms"] / row["ms"])
+        log(f"phase 17: K6 {row['label']} ({row['design']}): {row['ms']:.3f} ms per launch, "
+            f"{row['us_per_visit']:.4f} us per visit of a block, {row['tflops']:.2f} TFLOP/s of "
+            f"products, bound {row['bound_ms']:.3f} ms ({row['bound_by']}; "
+            f"{row['bound_share']:.3f} of it), plain {row['plain_ms']:.1f} ms; rows and counts "
+            f"equal ({row['accepted']} accepted), least t within {t_err:.3g}, fetches 0 [{smi}]")
         del got, want
 
     def kernel_row(name, source, first, checks, **extra):
@@ -1469,17 +1561,25 @@ def phase_lab(torch, smi):
 
     src = "kazen_tpu_torch/lab/csrc/lab.cu"
     head = next(r for r in mm_rows if (r["kind"], r["M"], r["K"]) == ("HIGHEST", 1024, 128))
+    k6_regs = {name: r for name, r in regs.items() if name.startswith("drain")}
     rows = [
-        kernel_row("K4", src, head, mm_rows, shape="HIGHEST M=1024 K=128 N=1024 reps 512",
+        kernel_row("K4", src, head, mm_rows + padded, shape="HIGHEST M=1024 K=128 N=1024 reps 512",
+                   design={kind: "simt f32" for kind in ("HIGHEST", "DEFAULT", "bf16-in")},
                    library="512 x (torch.mm + add_)", library_out_dtype=out_dtype,
                    library_device_ms=head["library_device_ms"],
-                   ms_by_shape={f"{r['kind']} M={r['M']} K={r['K']}": r["ms"] for r in mm_rows}),
+                   ms_by_shape={f"{r['kind']} M={r['M']} K={r['K']}": r["ms"]
+                                for r in mm_rows + padded}),
         kernel_row("K5", src, chain_row, [chain_row], shape="(512, 1024), 32 reps"),
         kernel_row("K6", src, drain_rows[0], drain_rows,
                    shape=f"{drain_rows[0]['label']}, blocks 506, visits 40",
+                   design={"HIGHEST": drain_design("HIGHEST", False),
+                           "DEFAULT": drain_design("DEFAULT", False),
+                           "bf16": drain_design("DEFAULT", True)},
+                   registers=k6_regs,
                    ms_by_config={r["label"]: r["ms"] for r in drain_rows}),
     ]
-    return rows, {"launches": launches, "mm": mm_rows, "chain": chain_row, "drain": drain_rows}
+    return rows, {"launches": launches, "mm": mm_rows, "mm_padded": padded, "chain": chain_row,
+                  "drain": drain_rows, "registers": regs}
 
 
 def main() -> int:
@@ -1995,7 +2095,7 @@ def main() -> int:
 
     # ---- phase 17: the lab probes K4-K6 ---------------------------------------
     t_phase = time.time()
-    lab_rows, lab_out = phase_lab(torch, smi)
+    lab_rows, lab_out = phase_lab(torch, smi, nvcc_out["lab"])
     log(f"phase 17: {time.time() - t_phase:.1f} s")
 
     mixed_run = passes["Mixed"]

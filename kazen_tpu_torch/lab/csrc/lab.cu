@@ -1,27 +1,53 @@
-// The lab probes on Hopper (sm_90a): K4, K5 and K6, plain SIMT kernels.
+// The lab probes on Hopper (sm_90a): K4, K5 and K6.
 //
 // Each computes what its Pallas original computes, at its shapes. They are
 // probes, not parts of render(): the originals measured what a piece of the
 // cluster-trace kernel costs on the TPU, and these ports measure the same
-// functions on the card. Tensor cores (wgmma), TMA and cp.async are not
-// used; a redesign that asks a Hopper question (tensor-core Moller-Trumbore
-// against the f32 loop) is later work.
+// functions on the card. K6 at DEFAULT and bf16 runs on the tensor cores
+// (wgmma, bf16 operands from shared memory, f32 sums); K6 at HIGHEST, K4 at
+// every precision and K5 run on the CUDA cores (the tensor cores have no
+// f32 product: TF32 or a 3 x bf16 split would change the bits). TMA and
+// cp.async are not used.
 //
 // Precision. HIGHEST is f32 products summed in f32. DEFAULT is the TPU's one
 // bf16 pass: both operands rounded to bf16 (round to nearest even), their
 // products (exact in f32) summed in f32. bf16-in takes bf16 operands.
 //
+// The tensor-core layout (K6). Both wgmma operands are read from shared
+// memory, K-major (the contraction dimension contiguous), without swizzle:
+// a core matrix is 8 rows x 16 bytes (8 bf16 values), 128 contiguous
+// bytes, and core matrix (r / 8, k / 8) of a (rows, KD) operand lies at
+// ((r / 8) (KD / 8) + k / 8) 128 bytes (core_off). The descriptor's leading
+// byte offset is then 128 (the next core matrix along k) and its stride
+// byte offset KD / 8 x 128 (the next 8 rows); a k-step of 16 moves the
+// start by 256 bytes. Operands are converted and transposed into that
+// layout as they are staged with ordinary stores, then made visible to the
+// async proxy (fence.proxy.async, a barrier) before the first wgmma. Thread
+// t of warp w of a warpgroup holds rows 16 w + t / 4 and 16 w + t / 4 + 8
+// of a 64-row accumulator, columns 8 i + 2 (t % 4) + {0, 1}.
+//
 // K4 kz_mm_probe replaces benchmarks/mxu_lab.py:make_mm_kernel (line 52):
 //   out (M, N) = sum over reps of W^T f, W (K, M), f (K, N), the f32 sum of
 //   the reps taken one after another. Bound by operations: 2 M K N reps
 //   over 67 TFLOP/s (f32) or 989 (bf16 tensor cores, DEFAULT and bf16-in);
-//   its bytes (a few MB) are nothing beside them. Design: a 64 x 64 output
-//   tile per block of 256 threads, 4 x 4 outputs a thread in registers, the
-//   tile's W and f slices in shared memory (2 K 64 floats, <= 64 KB for
-//   K <= 128), operands rounded once as they are staged. Each rep re-reads
-//   the slices after a compiler barrier, so the product is computed anew in
-//   every rep, as the original's loop does, and is not hoisted out of it.
-//   The f32 FMAs of the CUDA cores stay far from the bf16 bound.
+//   its bytes (a few MB) are nothing beside them. Design: an R x C register
+//   tile of outputs a thread, the block's W and f slices in shared memory
+//   (K x (rows + columns) floats), operands rounded once as they are
+//   staged. The tile is the largest whose grid gives at least every other
+//   SM a block: 64 x 128 (8 x 8 a thread, 128 threads) at M = N = 1024,
+//   64 x 64 (4 x 4, 256 threads) at M = 512, 32 x 32 (2 x 2) at M = 128,
+//   which then runs 128 blocks and not 32. Each rep re-reads the slices
+//   after a compiler barrier, so the product is computed anew in every rep,
+//   as the original's loop does, and is not hoisted out of it. The sums
+//   over k run in order with fmaf, so every tile equals the plain version
+//   bit for bit.
+//   DEFAULT and bf16-in stay on the CUDA cores on purpose: the plain
+//   version sums P over k one product at a time, and any other order (a
+//   wgmma's) changes P in its last bits; the 512 reps' round-to-nearest sums
+//   turn such a change into more than the probe's limit of 1e-5 of the
+//   output's maximum (tests/test_torch_lab.py,
+//   test_mm_probe_limit_needs_the_plain_order). The f32 FMAs stay far from
+//   the bf16 bound.
 //
 // K5 kz_chain_probe replaces the `vpu_kernel` closure of
 //   benchmarks/mxu_lab.py:main (line 127): 32 reps of the sign-folded
@@ -41,29 +67,48 @@
 //   runs the chain, and keeps the least tt; with the fetch, a lane whose
 //   least tt beats its acc row 0 takes it and the window's row 0 at its
 //   argmin. Bound by operations: blocks 1024 visits (2 MACs + ~17 K), MACs
-//   4 16 K (qp = 1) or 64 4K (qp = 4) a lane and visit. Design: one block
-//   of 1024 threads per block of lanes, one lane a thread. The visit's
-//   operands live in shared memory as an (F, 4K) f32 tile (column block j
-//   holds quantity j's operand, rounded as the precision says, so both
-//   packings run one inner loop); <= 128 KB for qp = 4, K = 128, dynamic
-//   shared memory. Each thread takes four columns at a time: per row f,
-//   one load of its feat value (global, L1/L2), four broadcast float4
-//   loads of the tile and 16 FMAs. The TPU's 256 KB two-slot buffer is not
-//   kept: only the current visit's tile and row 0 of the fetch window
+//   4 16 K (qp = 1) or 64 4K (qp = 4) a lane and visit, on the tensor cores
+//   for DEFAULT and bf16, on the CUDA cores for HIGHEST.
+//   DEFAULT and bf16 (drain_tc_kernel<T, QP>): one block of two
+//   warpgroups per block of 1024 lanes, lanes on the M side. feat^T (1024,
+//   F) is staged once (bf16, 32 KB for F = 16, 128 KB for 64). A visit's
+//   tests go in chunks of 64 columns: the chunk's (F, 4 x 64) operand tile
+//   (column block j quantity j's operand, w + j and the rounding applied as
+//   it is staged, zero past K) is B, and four m64n64k16 products a k-step
+//   with the same columns leave det, tn, un and vn of one (lane, test) at
+//   the same register index of the same thread. The chain runs on those
+//   registers; the least tt, its argmin (the first column on ties, as
+//   jnp.argmin) and the accepted count are folded over the thread's
+//   columns, then over the quad that shares a row with shuffles, then into
+//   the lane's state in shared memory; the least tt of a visit is also its
+//   least accepted tt (tt is BIG where rejected). The fold is bound by the
+//   CUDA cores' instruction rate: a chunk wholly below K folds without a
+//   column test (one branch and its reconvergence per pair of tests). Each
+//   warpgroup walks 8 row tiles of 64 lanes a chunk, products then fold.
+//   Two chunk buffers: while a row tile's products run, its threads stage
+//   an eighth of the next chunk (the next visit's first chunk across a
+//   visit's end; slots are known ahead) into the other buffer, so staging
+//   overlaps the products and no buffer needs the whole (F, 4K) tile (<=
+//   217 KB of shared memory at qp = 4, K = 224). The window row is
+//   double-buffered by visit pair.
+//   HIGHEST (drain_simt_kernel): one block of 1024 threads per block of
+//   lanes, one lane a thread; the visit's (F, 4K) f32 operand tile in
+//   shared memory (<= 128 KB for qp = 4, K = 128); per row f one load of
+//   the lane's feat value (global, L1/L2), four broadcast float4 loads of
+//   the tile and 16 FMAs for four columns. The sums over f run in order, as
+//   the plain version's; the products are by feat = 1 and exact, so q has
+//   the plain version's bits.
+//   Both keep only the current tile and row 0 of the fetch window
 //   wbuf[0:32, 0:K], the one row of the fetched product the original
-//   stores. Row 0 lies in slot 0, written by even visits, so the window is
-//   refreshed on even visits. The sums over f run f = 0, 1, ... in order,
-//   as the plain version's; the products are by feat = 1 and exact, so an
-//   FMA rounds as a separate product and sum would, and q has the same bits
-//   in both. Columns are scanned in order with a strict '<', so the argmin
-//   is the first, as jnp.argmin's. The fetch branch runs when any lane of
-//   the block improved (__syncthreads_or: the original's jnp.any over the
-//   block), and then sets row 1 of every lane of the block: the fetched
-//   value where the lane improved, else 0 (its one-hot column is 0).
-//   Port semantics for the original's two undefined reads: without the
-//   copy (with_dma = 0) the buffer is never written there, and here holds
-//   geo[0]; feat is written only at grid step 0 there (the TPU runs the
-//   grid in order on one core), and here is ones for every block.
+//   stores; row 0 lies in slot 0, written by even visits. The fetch branch
+//   runs when any lane of the block improved (__syncthreads_or: the
+//   original's jnp.any over the block), and then sets row 1 of every lane
+//   of the block: the fetched value where the lane improved, else 0 (its
+//   one-hot column is 0). Port semantics for the original's two undefined
+//   reads: without the copy (with_dma = 0) the buffer is never written
+//   there, and here holds geo[0]; feat is written only at grid step 0
+//   there (the TPU runs the grid in order on one core), and here is ones
+//   for every block.
 //
 // The chain (shared by K5 and K6) is written in round-to-nearest steps
 // where a product is inexact, so nvcc cannot fuse it into an FMA; the
@@ -74,14 +119,16 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr float BIG = 3.0e38f;
 constexpr float DET_EPS = 1e-8f;
 
-constexpr int MM_TILE = 64;
-constexpr int MM_THREADS = 256;
+constexpr int WG_THREADS = 128;  // one warpgroup
+constexpr int WG_ROWS = 64;      // rows of its wgmma accumulator
+
 enum MmMode { MM_HIGHEST = 0, MM_DEFAULT = 1, MM_BF16 = 2 };
 
 constexpr int CHAIN_ROWS = 128;
@@ -89,6 +136,9 @@ constexpr int CHAIN_THREADS = 256;
 
 constexpr int DRAIN_LANES = 1024;
 constexpr int GEO_SLOTS = 256;
+constexpr int TC_THREADS = 2 * WG_THREADS;
+constexpr int TC_CHUNK = 64;                                     // tests a chunk
+constexpr int TC_ROW_TILES = DRAIN_LANES / WG_ROWS / (TC_THREADS / WG_THREADS);  // a warpgroup's
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -114,8 +164,100 @@ __device__ __forceinline__ float chain(float det, float tn, float un, float vn, 
 }
 
 // ---------------------------------------------------------------------------
+// wgmma building blocks
+// ---------------------------------------------------------------------------
+
+// Element offset of (r, k) in a K-major (rows, kd) bf16 operand of 8 x 8
+// core matrices (kd a multiple of 8).
+__device__ __forceinline__ int core_off(int r, int k, int kd) {
+  return (((r >> 3) * (kd >> 3) + (k >> 3)) << 6) + ((r & 7) << 3) + (k & 7);
+}
+
+// Eight values rounded to bf16 and stored as one 16-byte row of a core matrix.
+__device__ __forceinline__ void store_row8(__nv_bfloat16* dst, const float (&v)[8]) {
+  uint4 packed;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&packed);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+    w[e] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  *reinterpret_cast<uint4*>(dst) = packed;
+}
+
+// The descriptor of a K-major operand without swizzle starting at `p`:
+// leading byte offset 128 (next core matrix along k), stride byte offset
+// `sbo` (next 8 rows), both in 16-byte units.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t sbo) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(128 >> 4) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32);
+}
+constexpr uint64_t DESC_KSTEP = 256 >> 4;  // a k-step of 16 bf16 values
+
+__device__ __forceinline__ void fence_async_proxy() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// Pins accumulator registers between the asynchronous wgmma statements.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define KZ_D8(d, i)                                                                     \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// D (64 x 64, f32) = A (64 x 16) B (16 x 64) + (scale_d ? D : 0), bf16 A and
+// B K-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint64_t b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : KZ_D8(d, 0), KZ_D8(d, 8), KZ_D8(d, 16), KZ_D8(d, 24)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+#undef KZ_D8
+
+// ---------------------------------------------------------------------------
 // K4
 // ---------------------------------------------------------------------------
+
+// V consecutive floats (V = 2 or 4) as one vector access.
+template <int V>
+__device__ __forceinline__ void load_vec(const float* p, float* v) {
+  if constexpr (V == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  } else {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x, v[1] = x.y;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_vec(float* p, const float* v) {
+  if constexpr (V == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+}
 
 template <int MODE>
 __device__ __forceinline__ float mm_operand(const void* p, size_t i) {
@@ -124,60 +266,79 @@ __device__ __forceinline__ float mm_operand(const void* p, size_t i) {
   return MODE == MM_DEFAULT ? round_bf16(x) : x;
 }
 
-template <int MODE>
-__global__ void __launch_bounds__(MM_THREADS)
+// A (TY R) x (16 C) output tile per block of 16 x TY threads, R x C
+// outputs a thread: rows R ty + i, columns in groups of V = min(C, 4) at
+// 16 V g + V tx + j (so a warp's vector loads of f's slice are contiguous).
+template <int MODE, int R, int C, int TY>
+__global__ void __launch_bounds__(16 * TY)
 mm_kernel(const void* w, const void* f, float* out, int M, int K, int N, int reps) {
+  constexpr int TM = TY * R, TN = 16 * C, THREADS = 16 * TY;
+  constexpr int VR = R < 4 ? R : 4, VC = C < 4 ? C : 4;
   extern __shared__ float4 mm_smem[];
-  float* ws = reinterpret_cast<float*>(mm_smem);  // (K, 64): W[k, m0 + c]
-  float* fs = ws + K * MM_TILE;                  // (K, 64): f[k, n0 + c]
-  const int m0 = blockIdx.y * MM_TILE, n0 = blockIdx.x * MM_TILE;
+  float* ws = reinterpret_cast<float*>(mm_smem);  // (K, TM): W[k, m0 + c]
+  float* fs = ws + K * TM;                        // (K, TN): f[k, n0 + c]
+  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  for (int i = tid; i < K * MM_TILE; i += MM_THREADS) {
-    const int k = i / MM_TILE, c = i % MM_TILE;
-    ws[i] = mm_operand<MODE>(w, (size_t)k * M + m0 + c);
-    fs[i] = mm_operand<MODE>(f, (size_t)k * N + n0 + c);
-  }
+  for (int i = tid; i < K * TM; i += THREADS)
+    ws[i] = mm_operand<MODE>(w, (size_t)(i / TM) * M + m0 + i % TM);
+  for (int i = tid; i < K * TN; i += THREADS)
+    fs[i] = mm_operand<MODE>(f, (size_t)(i / TN) * N + n0 + i % TN);
   __syncthreads();
-  const float4* ws4 = reinterpret_cast<const float4*>(ws);
-  const float4* fs4 = reinterpret_cast<const float4*>(fs);
-  // rows m0 + 4 ty + i, columns n0 + 4 tx + j
-  float acc[4][4] = {};
+  float acc[R][C] = {};
   for (int r = 0; r < reps; ++r) {
     asm volatile("" ::: "memory");  // the slices are read anew each rep
-    float p[4][4] = {};
+    float p[R][C] = {};
 #pragma unroll 4
     for (int k = 0; k < K; ++k) {
-      const float4 a4 = ws4[k * (MM_TILE / 4) + ty];
-      const float4 b4 = fs4[k * (MM_TILE / 4) + tx];
-      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+      float a[R], b[C];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int q = 0; q < R / VR; ++q) load_vec<VR>(ws + k * TM + R * ty + VR * q, a + VR * q);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) p[i][j] = fmaf(a[i], b[j], p[i][j]);
+      for (int g = 0; g < C / VC; ++g)
+        load_vec<VC>(fs + k * TN + 16 * VC * g + VC * tx, b + VC * g);
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < C; ++j) p[i][j] = fmaf(a[i], b[j], p[i][j]);
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = __fadd_rn(acc[i][j], p[i][j]);
+      for (int j = 0; j < C; ++j) acc[i][j] = __fadd_rn(acc[i][j], p[i][j]);
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float4* o = reinterpret_cast<float4*>(out + (size_t)(m0 + 4 * ty + i) * N + n0 + 4 * tx);
-    *o = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-  }
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int g = 0; g < C / VC; ++g)
+      store_vec<VC>(out + (size_t)(m0 + R * ty + i) * N + n0 + 16 * VC * g + VC * tx,
+                    acc[i] + VC * g);
 }
 
+template <int MODE, int R, int C, int TY>
+int launch_mm_tile(const void* w, const void* f, float* out, int M, int K, int N, int reps,
+                   cudaStream_t stream) {
+  const int smem = K * (TY * R + 16 * C) * (int)sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(mm_kernel<MODE, R, C, TY>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  mm_kernel<MODE, R, C, TY><<<dim3(N / (16 * C), M / (TY * R)), 16 * TY, smem, stream>>>(
+      w, f, out, M, K, N, reps);
+  return (int)cudaGetLastError();
+}
+
+// The largest tile whose grid gives at least every other SM a block: 64 x
+// 128 (8 x 8 outputs a thread), 64 x 64 (4 x 4) or 32 x 32 (2 x 2).
 template <int MODE>
 int launch_mm(const void* w, const void* f, float* out, int M, int K, int N, int reps,
               cudaStream_t stream) {
-  const int smem = 2 * K * MM_TILE * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(mm_kernel<MODE>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(N / MM_TILE, M / MM_TILE);
-  mm_kernel<MODE><<<grid, MM_THREADS, smem, stream>>>(w, f, out, M, K, N, reps);
-  return (int)cudaGetLastError();
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (N % 128 == 0 && 2 * (M / 64) * (N / 128) >= sms)
+    return launch_mm_tile<MODE, 8, 8, 8>(w, f, out, M, K, N, reps, stream);
+  if (2 * (M / 64) * (N / 64) >= sms)
+    return launch_mm_tile<MODE, 4, 4, 16>(w, f, out, M, K, N, reps, stream);
+  return launch_mm_tile<MODE, 2, 2, 16>(w, f, out, M, K, N, reps, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -212,49 +373,59 @@ chain_kernel(const float* a, float* out, int* count, float* tmin, int n, int rep
 // K6
 // ---------------------------------------------------------------------------
 
-// The (F, 4K) operand tile of one visit from one geo slot (F, width): column
-// block j holds quantity j's operand (qp = 4: slot columns jK..jK+K-1;
-// qp = 1: w + j on slot columns 0..K-1, the sum in f32), rounded to bf16
-// when `round_ops`.
-template <typename T>
-__device__ void load_tile(const T* slot, int F, int K, int width, int qp, int round_ops,
-                          float* tile) {
-  const int cols = 4 * K;
-  for (int i = threadIdx.x; i < F * cols; i += DRAIN_LANES) {
-    const int f = i / cols, col = i % cols, j = col / K;
-    float v = to_f32(slot[(size_t)f * width + (qp == 4 ? col : col - j * K)]);
-    if (qp == 1 && j > 0) v = __fadd_rn(v, (float)j);
-    tile[i] = round_ops ? round_bf16(v) : v;
+// The output rows and diagnostics of lane `lane` of block b.
+__device__ __forceinline__ void drain_store(float* out, int* count, float* tmin, int* fetches,
+                                            int lane, float acc0, float acc1, int accepted,
+                                            float lo, int taken) {
+  const size_t n = (size_t)gridDim.x * DRAIN_LANES, col = (size_t)blockIdx.x * DRAIN_LANES + lane;
+  out[col] = acc0;
+  out[n + col] = acc1;
+  for (int r = 2; r < 8; ++r) out[r * n + col] = 0.f;
+  if (count != nullptr) {
+    count[col] = accepted;
+    tmin[col] = lo;
+    fetches[col] = taken;
   }
 }
 
-template <typename T>
-__device__ void load_window(const T* slot, int K, float* window) {
-  for (int k = threadIdx.x; k < K; k += DRAIN_LANES) window[k] = to_f32(slot[k]);
+// HIGHEST: the f32 SIMT loop. The (F, 4K) operand tile of one visit from
+// one geo slot (F, width): column block j holds quantity j's operand (qp =
+// 4: slot columns jK..jK+K-1; qp = 1: w + j on slot columns 0..K-1, the sum
+// in f32).
+__device__ void load_tile(const float* slot, int F, int K, int width, int qp, float* tile) {
+  const int cols = 4 * K;
+  for (int i = threadIdx.x; i < F * cols; i += DRAIN_LANES) {
+    const int f = i / cols, col = i % cols, j = col / K;
+    const float v = slot[(size_t)f * width + (qp == 4 ? col : col - j * K)];
+    tile[i] = qp == 1 && j > 0 ? __fadd_rn(v, (float)j) : v;
+  }
 }
 
-template <typename T>
+__device__ void load_window(const float* slot, int K, float* window) {
+  for (int k = threadIdx.x; k < K; k += DRAIN_LANES) window[k] = slot[k];
+}
+
 __global__ void __launch_bounds__(DRAIN_LANES)
-drain_kernel(const T* geo, const T* feat, float* out, int* count, float* tmin, int* fetches,
-             int visits, int qp, int K, int width, int round_ops, int with_fetch,
-             int with_dma) {
-  extern __shared__ float4 drain_smem[];
+drain_simt_kernel(const float* geo, const float* feat, float* out, int* count, float* tmin,
+                  int* fetches, int visits, int qp, int K, int width, int with_fetch,
+                  int with_dma) {
+  extern __shared__ float4 drain_simt_smem[];
   const int F = 16 * qp, cols = 4 * K;
-  float* tile = reinterpret_cast<float*>(drain_smem);  // (F, 4K)
-  float* window = tile + F * cols;                     // (K,): wbuf[0, 0:K]
+  float* tile = reinterpret_cast<float*>(drain_simt_smem);  // (F, 4K)
+  float* window = tile + F * cols;                          // (K,): wbuf[0, 0:K]
   const int b = blockIdx.x, lane = threadIdx.x;
   const size_t slot_elems = (size_t)F * width;
   if (!with_dma) {  // the port's semantics: the never-written buffer holds geo[0]
-    load_tile(geo, F, K, width, qp, round_ops, tile);
+    load_tile(geo, F, K, width, qp, tile);
     load_window(geo, K, window);
   }
   float acc0 = 0.f, acc1 = 0.f, lo = BIG;
   int accepted = 0, taken = 0;
   for (int i = 0; i < visits; ++i) {
     if (with_dma) {
-      const T* slot = geo + (size_t)((b * 7 + i * 13) % GEO_SLOTS) * slot_elems;
+      const float* slot = geo + (size_t)((b * 7 + i * 13) % GEO_SLOTS) * slot_elems;
       __syncthreads();  // every lane is done with the last visit's tile
-      load_tile(slot, F, K, width, qp, round_ops, tile);
+      load_tile(slot, F, K, width, qp, tile);
       if (i % 2 == 0) load_window(slot, K, window);
     }
     __syncthreads();
@@ -263,8 +434,7 @@ drain_kernel(const T* geo, const T* feat, float* out, int* count, float* tmin, i
     for (int c = 0; c < K; c += 4) {
       float dot[4][4] = {};  // [quantity][column c + u]
       for (int f = 0; f < F; ++f) {
-        float fv = to_f32(feat[(size_t)f * DRAIN_LANES + lane]);
-        if (round_ops) fv = round_bf16(fv);
+        const float fv = feat[(size_t)f * DRAIN_LANES + lane];
         const float* row = tile + (size_t)f * cols + c;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -300,28 +470,288 @@ drain_kernel(const T* geo, const T* feat, float* out, int* count, float* tmin, i
       acc0 = fminf(acc0, leaf_min);
     }
   }
-  const size_t n = (size_t)gridDim.x * DRAIN_LANES, col = (size_t)b * DRAIN_LANES + lane;
-  out[col] = acc0;
-  out[n + col] = acc1;
-  for (int r = 2; r < 8; ++r) out[r * n + col] = 0.f;
-  if (count != nullptr) {
-    count[col] = accepted;
-    tmin[col] = lo;
-    fetches[col] = taken;
+  drain_store(out, count, tmin, fetches, lane, acc0, acc1, accepted, lo, taken);
+}
+
+// DEFAULT and bf16: the tensor-core visit.
+
+// One staging task of chunk c of a visit's operand tile into buf (4
+// quantity blocks of (64, F), K-major): eight rows f0..f0+7 of column n of
+// quantity q (qp = 4) or of all four (qp = 1, w + j), rounded to bf16, zero
+// for columns past K.
+template <typename T, int QP>
+__device__ __forceinline__ void stage_chunk_task(const T* slot, int width, int K, int c, int task,
+                                                 __nv_bfloat16* buf) {
+  constexpr int F = 16 * QP;
+  const int n = task % TC_CHUNK, rest = task / TC_CHUNK;
+  const int f0 = rest % (F / 8) * 8, q = rest / (F / 8);
+  const int k = c * TC_CHUNK + n;
+  float v[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    v[e] = k < K ? to_f32(slot[(size_t)(f0 + e) * width + (QP == 4 ? q * K : 0) + k]) : 0.f;
+  if (QP == 4) {
+    store_row8(buf + q * TC_CHUNK * F + core_off(n, f0, F), v);
+    return;
+  }
+  store_row8(buf + core_off(n, f0, F), v);
+#pragma unroll
+  for (int j = 1; j < 4; ++j) {
+    float vj[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) vj[e] = __fadd_rn(v[e], (float)j);
+    store_row8(buf + j * TC_CHUNK * F + core_off(n, f0, F), vj);
   }
 }
 
-template <typename T>
-int launch_drain(const void* geo, const void* feat, float* out, int* count, float* tmin,
-                 int* fetches, int blocks, int visits, int qp, int K, int width,
-                 int round_ops, int with_fetch, int with_dma, cudaStream_t stream) {
-  const int smem = (16 * qp * 4 * K + K) * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(drain_kernel<T>,
+// A test's chain folded into a row's least tt, its column and its accepted
+// count. tt is BIG where rejected, so the least tt is also the least
+// accepted tt, or BIG.
+__device__ __forceinline__ void fold_test(float det, float tn, float un, float vn, int col,
+                                          float& v, int& k, int& n) {
+  bool ok;
+  const float tt = chain(det, tn, un, vn, ok);
+  n += ok;
+  if (tt < v) {
+    v = tt;
+    k = col;
+  }
+}
+
+// The fold of a row over the four threads of the quad that holds it; ties
+// go to the lower column.
+__device__ __forceinline__ void quad_fold(float& v, int& k, int& n) {
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+    const int ok = __shfl_xor_sync(0xffffffffu, k, off);
+    n += __shfl_xor_sync(0xffffffffu, n, off);
+    if (ov < v || (ov == v && ok < k)) {
+      v = ov;
+      k = ok;
+    }
+  }
+}
+
+// The chain of a row tile's chunk folded over the thread's two rows (a:
+// accumulator entries 4 g + e, b: 4 g + 2 + e) and its columns col0 + 8 g +
+// e; without FULL, columns from K on are skipped.
+template <bool FULL>
+__device__ __forceinline__ void fold_chunk(const float (&d)[4][32], int col0, int K, float& va,
+                                           int& ka, int& na, float& vb, int& kb, int& nb) {
+#pragma unroll
+  for (int g = 0; g < TC_CHUNK / 8; ++g)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = col0 + 8 * g + e, ra = 4 * g + e, rb = 4 * g + 2 + e;
+      if (FULL || col < K) {
+        fold_test(d[0][ra], d[1][ra], d[2][ra], d[3][ra], col, va, ka, na);
+        fold_test(d[0][rb], d[1][rb], d[2][rb], d[3][rb], col, vb, kb, nb);
+      }
+    }
+}
+
+struct LaneState {  // per lane of the block, in shared memory
+  float* leaf_min;  // this visit's least tt
+  int* kwin;        // its column
+  float* acc0;
+  float* acc1;
+  int* accepted;
+  float* lo;        // the least accepted tt over the visits so far
+};
+
+template <typename T, int QP>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+drain_tc_kernel(const T* geo, const T* feat, float* out, int* count, float* tmin, int* fetches,
+                int visits, int K, int width, int with_fetch, int with_dma) {
+  constexpr int F = 16 * QP, KSTEPS = F / 16;
+  constexpr int CHUNK_ELEMS = 4 * TC_CHUNK * F;
+  constexpr int TASKS = (QP == 4 ? 4 : 1) * TC_CHUNK * (F / 8);  // staging tasks a chunk
+  constexpr uint32_t SBO = F / 8 * 128;
+  static_assert(TASKS <= TC_ROW_TILES * TC_THREADS, "a chunk is staged over the row tiles");
+  extern __shared__ __align__(128) unsigned char drain_tc_smem[];
+  __nv_bfloat16* feat_t = reinterpret_cast<__nv_bfloat16*>(drain_tc_smem);  // (1024, F)
+  __nv_bfloat16* chunks = feat_t + DRAIN_LANES * F;                          // 2 x (4, 64, F)
+  float* state = reinterpret_cast<float*>(chunks + 2 * CHUNK_ELEMS);
+  const LaneState st{state,
+                     reinterpret_cast<int*>(state + DRAIN_LANES),
+                     state + 2 * DRAIN_LANES,
+                     state + 3 * DRAIN_LANES,
+                     reinterpret_cast<int*>(state + 4 * DRAIN_LANES),
+                     state + 5 * DRAIN_LANES};
+  float* windows = state + 6 * DRAIN_LANES;  // 2 x K: wbuf[0, 0:K] by visit pair
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int per_visit = (K + TC_CHUNK - 1) / TC_CHUNK, jobs = visits * per_visit;
+  const size_t slot_elems = (size_t)F * width;
+  auto slot_of = [&](int i) {
+    return with_dma ? geo + (size_t)((b * 7 + i * 13) % GEO_SLOTS) * slot_elems : geo;
+  };
+  // the window of visit i, staged with its first chunk where it changes:
+  // every even visit with the copy, visit 0 without it
+  auto window_of = [&](int i) { return windows + (with_dma ? (i / 2) % 2 : 0) * K; };
+  auto stages_window = [&](int i) { return with_dma ? i % 2 == 0 : i == 0; };
+
+  for (int i = tid; i < DRAIN_LANES * (F / 8); i += TC_THREADS) {
+    const int lane = i % DRAIN_LANES, f0 = i / DRAIN_LANES * 8;
+    float v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = to_f32(feat[(size_t)(f0 + e) * DRAIN_LANES + lane]);
+    store_row8(feat_t + core_off(lane, f0, F), v);
+  }
+  for (int l = tid; l < DRAIN_LANES; l += TC_THREADS) {
+    st.leaf_min[l] = BIG;
+    st.kwin[l] = 0;
+    st.acc0[l] = 0.f;
+    st.acc1[l] = 0.f;
+    st.accepted[l] = 0;
+    st.lo[l] = BIG;
+  }
+  if (jobs > 0) {
+    for (int task = tid; task < TASKS; task += TC_THREADS)
+      stage_chunk_task<T, QP>(slot_of(0), width, K, 0, task, chunks);
+    for (int k = tid; k < K; k += TC_THREADS) window_of(0)[k] = to_f32(slot_of(0)[k]);
+  }
+  fence_async_proxy();
+  __syncthreads();
+
+  const int wg = tid / WG_THREADS, warp = tid % WG_THREADS / 32, t = tid % 32;
+  int taken = 0;
+  float d[4][32];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int r = 0; r < 32; ++r) d[q][r] = 0.f;
+  for (int job = 0; job < jobs; ++job) {
+    const int i = job / per_visit, c = job % per_visit;
+    const __nv_bfloat16* cur = chunks + (job % 2) * CHUNK_ELEMS;
+    const bool more = job + 1 < jobs;
+    const int ni = (job + 1) / per_visit, nc = (job + 1) % per_visit;
+    const T* nslot = slot_of(ni);
+    __nv_bfloat16* nbuf = chunks + ((job + 1) % 2) * CHUNK_ELEMS;
+    uint64_t db[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) db[q] = smem_desc(cur + q * TC_CHUNK * F, SBO);
+    for (int rt = 0; rt < TC_ROW_TILES; ++rt) {
+      const int r0 = (wg * TC_ROW_TILES + rt) * WG_ROWS;
+      const uint64_t da = smem_desc(feat_t + core_off(r0, 0, F), SBO);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) fence_regs(d[q]);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < KSTEPS; ++s)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          wgmma_m64n64k16(d[q], da + s * DESC_KSTEP, db[q] + s * DESC_KSTEP, s > 0);
+      wgmma_commit();
+      // an eighth of the next chunk while the products run
+      if (more) {
+        const int task = rt * TC_THREADS + tid;
+        if (task < TASKS) stage_chunk_task<T, QP>(nslot, width, K, nc, task, nbuf);
+        if (rt == 0 && nc == 0 && stages_window(ni))
+          for (int k = tid; k < K; k += TC_THREADS) window_of(ni)[k] = to_f32(nslot[k]);
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int q = 0; q < 4; ++q) fence_regs(d[q]);
+      // rows a = r0 + 16 warp + t / 4 and b = a + 8, columns c 64 + 8 g + 2 (t % 4) + e
+      float va = BIG, vb = BIG;
+      int ka = 0x7fffffff, kb = 0x7fffffff, na = 0, nb = 0;
+      const int col0 = c * TC_CHUNK + 2 * (t % 4);
+      if ((c + 1) * TC_CHUNK <= K)
+        fold_chunk<true>(d, col0, K, va, ka, na, vb, kb, nb);
+      else
+        fold_chunk<false>(d, col0, K, va, ka, na, vb, kb, nb);
+      quad_fold(va, ka, na);
+      quad_fold(vb, kb, nb);
+      if (t % 4 == 0) {
+        const int la = r0 + 16 * warp + t / 4, lb = la + 8;
+        if (va < st.leaf_min[la]) {  // an earlier chunk keeps a tie
+          st.leaf_min[la] = va;
+          st.kwin[la] = ka;
+        }
+        if (vb < st.leaf_min[lb]) {
+          st.leaf_min[lb] = vb;
+          st.kwin[lb] = kb;
+        }
+        st.accepted[la] += na;
+        st.accepted[lb] += nb;
+      }
+    }
+    fence_async_proxy();
+    __syncthreads();  // the next chunk is staged, this one's products are read
+    if (c == per_visit - 1) {  // the visit's end: the fetch
+      if (with_fetch) {
+        bool improved = false;
+        for (int l = tid; l < DRAIN_LANES; l += TC_THREADS) improved |= st.leaf_min[l] < st.acc0[l];
+        if (__syncthreads_or(improved)) {
+          const float* window = window_of(i);
+          for (int l = tid; l < DRAIN_LANES; l += TC_THREADS) {
+            const bool better = st.leaf_min[l] < st.acc0[l];
+            st.acc1[l] = better ? window[st.kwin[l]] : 0.f;
+            if (better) st.acc0[l] = st.leaf_min[l];
+          }
+          ++taken;
+        }
+      } else {
+        for (int l = tid; l < DRAIN_LANES; l += TC_THREADS)
+          st.acc0[l] = fminf(st.acc0[l], st.leaf_min[l]);
+      }
+      for (int l = tid; l < DRAIN_LANES; l += TC_THREADS) {
+        st.lo[l] = fminf(st.lo[l], st.leaf_min[l]);
+        st.leaf_min[l] = BIG;
+        st.kwin[l] = 0;
+      }
+      __syncthreads();
+    }
+  }
+  for (int l = tid; l < DRAIN_LANES; l += TC_THREADS)
+    drain_store(out, count, tmin, fetches, l, st.acc0[l], st.acc1[l], st.accepted[l], st.lo[l],
+                taken);
+}
+
+int drain_tc_smem_bytes(int qp, int K) {
+  const int F = 16 * qp;
+  return (DRAIN_LANES * F + 2 * 4 * TC_CHUNK * F) * (int)sizeof(__nv_bfloat16) +
+         (6 * DRAIN_LANES + 2 * K) * (int)sizeof(float);
+}
+
+template <typename T, int QP>
+int launch_drain_tc(const void* geo, const void* feat, float* out, int* count, float* tmin,
+                    int* fetches, int blocks, int visits, int K, int width, int with_fetch,
+                    int with_dma, cudaStream_t stream) {
+  const int smem = drain_tc_smem_bytes(QP, K);
+  cudaError_t e = cudaFuncSetAttribute(drain_tc_kernel<T, QP>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  drain_kernel<T><<<blocks, DRAIN_LANES, smem, stream>>>(
-      static_cast<const T*>(geo), static_cast<const T*>(feat), out, count, tmin, fetches,
-      visits, qp, K, width, round_ops, with_fetch, with_dma);
+  drain_tc_kernel<T, QP><<<blocks, TC_THREADS, smem, stream>>>(
+      static_cast<const T*>(geo), static_cast<const T*>(feat), out, count, tmin, fetches, visits,
+      K, width, with_fetch, with_dma);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_drain_tc_qp(const void* geo, const void* feat, float* out, int* count, float* tmin,
+                       int* fetches, int blocks, int visits, int qp, int K, int width,
+                       int with_fetch, int with_dma, cudaStream_t stream) {
+  if (qp == 4)
+    return launch_drain_tc<T, 4>(geo, feat, out, count, tmin, fetches, blocks, visits, K, width,
+                                 with_fetch, with_dma, stream);
+  if (qp == 1)
+    return launch_drain_tc<T, 1>(geo, feat, out, count, tmin, fetches, blocks, visits, K, width,
+                                 with_fetch, with_dma, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+int launch_drain_simt(const void* geo, const void* feat, float* out, int* count, float* tmin,
+                      int* fetches, int blocks, int visits, int qp, int K, int width,
+                      int with_fetch, int with_dma, cudaStream_t stream) {
+  const int smem = (16 * qp * 4 * K + K) * (int)sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(drain_simt_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  drain_simt_kernel<<<blocks, DRAIN_LANES, smem, stream>>>(
+      static_cast<const float*>(geo), static_cast<const float*>(feat), out, count, tmin, fetches,
+      visits, qp, K, width, with_fetch, with_dma);
   return (int)cudaGetLastError();
 }
 
@@ -352,14 +782,21 @@ int kz_chain_probe(const float* a, float* out, int* count, float* tmin, int n, i
 
 // geo (256, 16 qp, width) and feat (16 qp, 1024), f32 or bf16 (bf16 = 1);
 // out (8, blocks 1024) f32; count, tmin, fetches (blocks 1024) or null.
+// round_ops (DEFAULT, or bf16 operands) runs the tensor-core visit, else
+// (f32 operands at HIGHEST) the f32 SIMT loop.
 int kz_drain_probe(const void* geo, const void* feat, float* out, int* count, float* tmin,
                    int* fetches, int blocks, int visits, int qp, int K, int width, int bf16,
                    int round_ops, int with_fetch, int with_dma, cudaStream_t stream) {
+  if (!round_ops) {
+    if (bf16) return (int)cudaErrorInvalidValue;
+    return launch_drain_simt(geo, feat, out, count, tmin, fetches, blocks, visits, qp, K, width,
+                             with_fetch, with_dma, stream);
+  }
   if (bf16)
-    return launch_drain<__nv_bfloat16>(geo, feat, out, count, tmin, fetches, blocks, visits, qp,
-                                       K, width, round_ops, with_fetch, with_dma, stream);
-  return launch_drain<float>(geo, feat, out, count, tmin, fetches, blocks, visits, qp, K,
-                             width, round_ops, with_fetch, with_dma, stream);
+    return launch_drain_tc_qp<__nv_bfloat16>(geo, feat, out, count, tmin, fetches, blocks, visits,
+                                             qp, K, width, with_fetch, with_dma, stream);
+  return launch_drain_tc_qp<float>(geo, feat, out, count, tmin, fetches, blocks, visits, qp, K,
+                                   width, with_fetch, with_dma, stream);
 }
 
 const char* kz_error_string(int code) {

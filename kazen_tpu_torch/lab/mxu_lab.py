@@ -16,7 +16,10 @@ element, the count of accepted tests and the least accepted ``tt`` (3e38
 when none), which do depend on the input.
 
 Each wrapper launches its kernel (``csrc/lab.cu``) for CUDA tensors and runs
-its plain PyTorch version for CPU tensors. ``main()`` runs the original's
+its plain PyTorch version for CPU tensors. K4 runs on the CUDA cores at
+every precision, in the plain version's order of sums, so the two agree
+bit for bit: 512 reps of the sum turn any other order of P's sums (a
+tensor core's) into more than the 1e-5 x max it is held to. ``main()`` runs the original's
 table on the card: ``python -m kazen_tpu_torch.lab.mxu_lab [--device cpu]``
 (on the CPU, ``main("cpu", n=64, reps=2)`` runs the plain versions small).
 """
@@ -35,7 +38,7 @@ MM_PROBE = CudaKernel("mm_probe", "benchmarks/mxu_lab.py:52")
 CHAIN_PROBE = CudaKernel("chain_probe", "benchmarks/mxu_lab.py:127")
 
 PRECISIONS = ("HIGHEST", "DEFAULT")
-TILE = 64  # the kernel's output tile: M and N are multiples of it
+TILE = 64  # M and N are multiples of it
 MAX_K = 128
 CHAIN_ROWS = 128  # rows of each of the four slices of K5's input
 CHAIN_REPS = 32

@@ -20,6 +20,10 @@ defines them: without the copy (``with_dma=False``) the buffer holds geo[0];
 ``run(geo, diag=True)`` also returns per lane the count of accepted tests,
 the least accepted tt (3e38 when none) and the fetches taken.
 
+On the card the precision picks the design (``csrc/lab.cu``): DEFAULT and
+bf16 geo run the visit's products on the tensor cores (bf16 ``wgmma`` from
+shared memory, f32 sums), f32 geo at HIGHEST on an f32 SIMT loop.
+
 ``main()`` runs the original's 8 configurations at blocks = 506, visits =
 40: ``python -m kazen_tpu_torch.lab.visit_lab [--device cpu]`` (on the CPU,
 ``main("cpu", blocks=1, visits=1)`` runs the plain versions small).

@@ -54,7 +54,7 @@ def np_chain(det, tn, un, vn):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("K", [16, 64])
+@pytest.mark.parametrize("K", [8, 16, 40, 64])
 @pytest.mark.parametrize("kind", ["HIGHEST", "DEFAULT", "bf16-in"])
 def test_mm_probe_matches_pallas(kind, K):
     M, N, reps = 128, 256, 4
@@ -76,6 +76,28 @@ def test_mm_probe_matches_pallas(kind, K):
     assert got.shape == want.shape == (M, N) and got.dtype == np.float32
     err = np.abs(got - want).max()
     assert err <= 1e-5 * np.abs(want).max(), err
+
+
+def test_mm_probe_limit_needs_the_plain_order():
+    """Why K4 keeps the plain version's order of sums over k at every
+    precision: P summed in another order (here k reversed) is within 4e-7 of
+    the plain P, but 512 round-to-nearest sums of it land more than 1e-5 x
+    max away from the plain version's, the limit the kernel is held to."""
+    M, N, K, reps = 128, 256, 128, mxu_t.REPS
+    rng = np.random.default_rng(0)
+    w = torch.from_numpy(rng.random((K, M), dtype=np.float32))
+    f = torch.from_numpy(rng.random((K, N), dtype=np.float32))
+    a, b = mxu_t.round_bf16(w), mxu_t.round_bf16(f)
+    p = torch.zeros((M, N))
+    for k in reversed(range(K)):
+        p.addcmul_(a[k, :, None], b[k, None, :])
+    acc = torch.zeros_like(p)
+    for _ in range(reps):
+        acc = acc + p
+    want_p = mxu_t.mm_probe_plain(w, f, 1, "DEFAULT")
+    want = mxu_t.mm_probe_plain(w, f, reps, "DEFAULT")
+    assert (p - want_p).abs().max() <= 4e-7 * want_p.abs().max()
+    assert (acc - want).abs().max() > 1e-5 * want.abs().max()
 
 
 # ---------------------------------------------------------------------------
@@ -271,34 +293,41 @@ def test_visit_main_on_cpu(capsys):
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
     """Phase 17's kernel-against-plain checks of chip_smoke.py at small
-    sizes: K4 at each precision, K5 and K6 with their diagnostics."""
+    sizes: K4 at each precision and at K = 8, 40 and 64 (the f32 loop, bit
+    for bit); K5; K6 at each configuration (DEFAULT and bf16 on the tensor
+    cores) with its diagnostics, on seeded geo, on integer geo (every sum
+    exact) and at K = 100 and 36, not multiples of its 64-test chunk."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the lab kernels have no CPU mode")
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     for kind in ("HIGHEST", "DEFAULT", "bf16-in"):
-        dt = torch.bfloat16 if kind == "bf16-in" else torch.float32
-        w = torch.from_numpy(rng.random((64, 128), dtype=np.float32)).to(dev, dt)
-        f = torch.from_numpy(rng.random((64, 256), dtype=np.float32)).to(dev, dt)
-        prec = "HIGHEST" if kind == "HIGHEST" else "DEFAULT"
-        before = mxu_t.MM_PROBE.launches
-        got = mxu_t.mm_probe_cuda(w, f, 8, prec)
-        want = mxu_t.mm_probe_plain(w, f, 8, prec)
-        torch.cuda.synchronize()
-        assert mxu_t.MM_PROBE.launches == before + 1
-        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+        for K in (8, 40, 64):
+            dt = torch.bfloat16 if kind == "bf16-in" else torch.float32
+            w = torch.from_numpy(rng.random((K, 128), dtype=np.float32)).to(dev, dt)
+            f = torch.from_numpy(rng.random((K, 256), dtype=np.float32)).to(dev, dt)
+            prec = "HIGHEST" if kind == "HIGHEST" else "DEFAULT"
+            before = mxu_t.MM_PROBE.launches
+            got = mxu_t.mm_probe_cuda(w, f, 8, prec)
+            want = mxu_t.mm_probe_plain(w, f, 8, prec)
+            torch.cuda.synchronize()
+            assert mxu_t.MM_PROBE.launches == before + 1
+            assert torch.equal(got, want)
     a = torch.from_numpy(rng.random((512, 256), dtype=np.float32)).to(dev)
     got, want = mxu_t.chain_probe_cuda(a, diag=True), mxu_t.chain_probe_plain(a, diag=True)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     torch.testing.assert_close(got[2], want[2], rtol=1e-6, atol=0)
-    for _, qp, kt, prec, bf16, fetch, dma in visit_t.CONFIGS:
+    padded = [("", 1, 100, "DEFAULT", False, True, True), ("", 4, 36, "DEFAULT", True, True, True)]
+    for _, qp, kt, prec, bf16, fetch, dma in list(visit_t.CONFIGS) + padded:
         args = (VISITS, qp, kt, prec, fetch, dma, BLOCKS)
-        geo = torch.from_numpy(seeded_geo(visit_t.geo_shape(qp, kt), bf16, *accepting_range(qp)))
-        geo = geo.to(dev, torch.bfloat16 if bf16 else torch.float32)
-        got = visit_t.drain_cuda(geo, *args, diag=True)
-        want = visit_t.drain_plain(geo, *args, diag=True)
-        for x, y in zip(got, want):
-            if x.dtype == torch.float32 and x.dim() == 1:
-                torch.testing.assert_close(x, y, rtol=1e-6, atol=0)
-            else:
-                assert torch.equal(x, y)
+        shape = visit_t.geo_shape(qp, kt)
+        integers = np.random.default_rng(5).integers(-8, 9, shape).astype(np.float32)
+        for g in (seeded_geo(shape, bf16, *accepting_range(qp)), integers):
+            geo = torch.from_numpy(g).to(dev, torch.bfloat16 if bf16 else torch.float32)
+            got = visit_t.drain_cuda(geo, *args, diag=True)
+            want = visit_t.drain_plain(geo, *args, diag=True)
+            for x, y in zip(got, want):
+                if x.dtype == torch.float32 and x.dim() == 1:
+                    torch.testing.assert_close(x, y, rtol=1e-6, atol=0)
+                else:
+                    assert torch.equal(x, y)
