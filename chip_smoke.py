@@ -120,13 +120,28 @@ Phases (each check raises; the script exits non-zero on the first failure):
     plain version (max abs err <= 1e-5 x max), its TFLOP/s, plain and
     library ms (512 x torch.mm + add_; wall and, under torch.profiler,
     device time) and bound, and at M=1024, K=128 its ms at 512 reps >= 6x
-    its ms at 64 (in turns); K5 on a seeded uniform (512, 1024): outputs
-    and accepted counts equal, least t within rtol 1e-6; K6 at each
+    its ms at 64 (in turns); K5 on a seeded uniform (512, 1024) in [0, 1)
+    and in [-1, 1): outputs and accepted counts equal, least t within rtol
+    1e-6; K5's device time a launch (torch.profiler, the median of 21
+    single launches) beside an empty kernel's at its launch shape (the
+    floor) and its call time (CUDA events over 20 Python calls); K6 at each
     configuration on a seeded geo where tests are accepted: rows, counts
     and fetches (0) equal, least t within rtol 1e-6, its design, TFLOP/s
     of products, plain ms and bound.
+18. The measuring scripts (phase_measure): kazen_tpu_torch/lab/
+    profile_pass2.py's rows on the stand-in at 1080p (the full pass, K1
+    sorted with the ordered permute and unsorted, K2 in the packet order,
+    the argsort and both gathers of the permute, the primary intersect),
+    each in event ms and device ms; the stage attribution of a stand-in,
+    a pmj02bn and a Textured pass from torch.profiler's Python stacks
+    (device, wall and host ms and launches per stage and bounce; named
+    stages must hold >= 95% of each pass's device time and every device
+    activity must be traced to its launch), pmj02bn's syncs and its pass
+    with the sampler's tables built by render() and given to it, and
+    Textured's texture-fetch sites; then every row of glue_lab.py at
+    2,073,600 lanes, each alternative equal to its plain row.
 
-Each of phases 10-17 logs its seconds, and the script its total.
+Each of phases 10-18 logs its seconds, and the script its total.
 Every comparison of radiance holds PERF.md's gate: per-lane radiance within
 rtol 1e-3 / atol 1e-4 on >= 99% of lanes, channel means within 0.5% and ray
 totals within 0.1%.
@@ -1296,6 +1311,7 @@ PEAK_BF16_FLOPS = 989e12  # dense bf16 tensor cores (NVIDIA data sheet)
 # four minima, two compares, the reciprocal, its product and tt's select;
 # K5 adds tt + r and its running minimum
 CHAIN_FLOPS = 17
+K5_LAUNCHES = 21  # single launches whose median device time is K5's
 REPS_SHORT = 64  # K4 at 512 reps must take >= REPS_SCALING x its time at 64
 REPS_SCALING = 6.0
 
@@ -1410,7 +1426,7 @@ def phase_lab(torch, smi, ptxas=""):
     to 0 before and read after; then each kernel against its plain version,
     ms, bound, plain ms and (K4) library ms. ``ptxas`` is the lab library's
     compiler report, for the registers and spills of each instance."""
-    from kazen_tpu_torch.lab import mxu_lab, visit_lab
+    from kazen_tpu_torch.lab import launch_device_ms, mxu_lab, visit_lab
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False  # the default, stated
@@ -1497,25 +1513,50 @@ def phase_lab(torch, smi, ptxas=""):
     log(f"phase 17: K4's yardstick: torch.mm {'with' if out_dtype else 'without'} out_dtype "
         f"(bf16 operands, {'f32' if out_dtype else 'bf16'} products out)")
 
-    # K5 on the original's input: uniform in [0, 1), (512, 1024)
+    # K5 on the original's input (uniform in [0, 1), (512, 1024)) and on the
+    # diagnostics' (uniform in [-1, 1), where tests of either sign of det
+    # are accepted): outputs and counts equal, least t within rtol 1e-6
     n = chain_row["N"]
-    a = torch.from_numpy(rng.random((4 * mxu_lab.CHAIN_ROWS, n), dtype=np.float32)).to(dev)
-    got = mxu_lab.chain_probe_cuda(a, diag=True)
-    want = mxu_lab.chain_probe_plain(a, diag=True)
-    t_err = ((got[2] - want[2]).abs() / want[2].abs()).max().item()
-    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]) and t_err <= 1e-6):
-        raise AssertionError(f"phase 17: K5 differs from its plain version (least t rel {t_err})")
+    shape = (4 * mxu_lab.CHAIN_ROWS, n)
+    inputs = {"original": rng.random(shape, dtype=np.float32),
+              "diagnostics": rng.uniform(-1.0, 1.0, shape).astype(np.float32)}
+    for label, x in inputs.items():
+        a = torch.from_numpy(x).to(dev)
+        got = mxu_lab.chain_probe_cuda(a, diag=True)
+        want = mxu_lab.chain_probe_plain(a, diag=True)
+        diff = (got[2] - want[2]).abs()
+        t_err = torch.where(diff == 0, 0.0, diff / want[2].abs()).max().item()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]) and t_err <= 1e-6):
+            raise AssertionError(f"phase 17: K5 differs from its plain version on the {label} "
+                                 f"input (least t rel {t_err})")
+        chain_row[f"check_{label}"] = {"tmin_rel_err": t_err, "accepted": int(got[1].sum().item())}
+    a = torch.from_numpy(inputs["original"]).to(dev)
+    # device time a launch (torch.profiler), beside an empty kernel at K5's
+    # launch shape (the card's floor for it) and the time a Python call
+    # takes (CUDA events over mxu_lab.main's 20 back-to-back calls)
+    chain_row["call_ms"] = chain_row.pop("ms")
+    chain_row["ms"] = launch_device_ms(lambda: mxu_lab.chain_probe_cuda(a), K5_LAUNCHES)
+    chain_row["floor_ms"] = launch_device_ms(lambda: mxu_lab.chain_empty_cuda(a), K5_LAUNCHES)
     chain_row.update(
-        max_abs_err=(got[0] - want[0]).abs().max().item(), tmin_rel_err=t_err,
-        accepted=int(got[1].sum().item()),
+        max_abs_err=(got[0] - want[0]).abs().max().item(),
+        tmin_rel_err=max(c["tmin_rel_err"] for k, c in chain_row.items() if k.startswith("check_")),
+        accepted=chain_row["check_original"]["accepted"],
         plain_ms=cuda_ms(torch, lambda: mxu_lab.chain_probe_plain(a), 3))
     chain_row["bound_ms"], chain_row["bound_by"] = lab_bound(
         [(mxu_lab.CHAIN_ROWS * n * mxu_lab.CHAIN_REPS * (CHAIN_FLOPS + 2), PEAK_F32_FLOPS)],
         5 * mxu_lab.CHAIN_ROWS * n * 4)
-    log(f"phase 17: K5 (128x{n}, {mxu_lab.CHAIN_REPS} reps): {chain_row['ms'] * 1e3:.2f} us per "
-        f"launch, bound {chain_row['bound_ms'] * 1e3:.3f} us ({chain_row['bound_by']}; below the "
-        f"launch latency), plain {chain_row['plain_ms']:.3f} ms; outputs and accepted counts "
-        f"equal ({chain_row['accepted']} accepted), least t within {t_err:.3g} [{smi}]")
+    us = {k: chain_row[k] * 1e3 for k in ("ms", "floor_ms", "bound_ms")}
+    chain_row["meets"] = {"2 x bound": us["ms"] <= 2.0 * us["bound_ms"],
+                          "floor + 1 us": us["ms"] <= us["floor_ms"] + 1.0}
+    log(f"phase 17: K5 (128x{n}, {mxu_lab.CHAIN_REPS} reps): device {us['ms']:.3f} us a launch "
+        f"(torch.profiler, median of {K5_LAUNCHES} launches), empty kernel at its launch shape "
+        f"{us['floor_ms']:.3f} us, call {chain_row['call_ms'] * 1e3:.2f} us (CUDA events over 20 "
+        f"Python calls); bound {us['bound_ms']:.3f} us ({chain_row['bound_by']}); targets "
+        f"{chain_row['meets']}; plain {chain_row['plain_ms']:.3f} ms; outputs and accepted counts "
+        f"equal on the original's and the diagnostics' input "
+        f"({chain_row['check_original']['accepted']} and "
+        f"{chain_row['check_diagnostics']['accepted']} accepted), least t within "
+        f"{chain_row['tmin_rel_err']:.3g} [{smi}]")
 
     # K6 at each configuration: kernel against plain on a seeded geo
     for row in drain_rows:
@@ -1569,7 +1610,9 @@ def phase_lab(torch, smi, ptxas=""):
                    library_device_ms=head["library_device_ms"],
                    ms_by_shape={f"{r['kind']} M={r['M']} K={r['K']}": r["ms"]
                                 for r in mm_rows + padded}),
-        kernel_row("K5", src, chain_row, [chain_row], shape="(512, 1024), 32 reps"),
+        kernel_row("K5", src, chain_row, [chain_row], shape="(512, 1024), 32 reps",
+                   call_ms=chain_row["call_ms"], floor_ms=chain_row["floor_ms"],
+                   meets=chain_row["meets"]),
         kernel_row("K6", src, drain_rows[0], drain_rows,
                    shape=f"{drain_rows[0]['label']}, blocks 506, visits 40",
                    design={"HIGHEST": drain_design("HIGHEST", False),
@@ -1580,6 +1623,75 @@ def phase_lab(torch, smi, ptxas=""):
     ]
     return rows, {"launches": launches, "mm": mm_rows, "mm_padded": padded, "chain": chain_row,
                   "drain": drain_rows, "registers": regs}
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the stage attribution of a pass and the glue micro-costs
+# ---------------------------------------------------------------------------
+
+NAMED_SHARE = 0.95  # of a profiled pass's device time the named stages must hold
+
+
+def phase_measure(torch, D, smi, out_dir):
+    """Phase 18: kazen_tpu_torch/lab/profile_pass2.py and glue_lab.py on the
+    card. profile_pass2's rows on the stand-in at 1080p; the stage
+    attribution of a stand-in, a pmj02bn and a Textured pass (named stages
+    >= NAMED_SHARE of each pass's device time, every device activity traced
+    to its launch, every stage launching), pmj02bn's syncs and its pass
+    with the sampler's tables built by render() and given to it, Textured's
+    texture-fetch sites; every glue_lab row at 2,073,600 lanes, each alternative equal to its plain row
+    (glue_lab raises otherwise). Writes chip_smoke_phase18.json to out_dir."""
+    from kazen_tpu_torch.integrate.render import render, sampler_spec
+    from kazen_tpu_torch.lab import glue_lab, profile_pass2 as pp2
+    from kazen_tpu_torch.scene.compiler import compile_scene
+
+    dev = torch.device("cuda")
+    scenes = {
+        "stand-in": lambda: stand_in_scene(D, WIDTH, HEIGHT),
+        "pmj02bn": lambda: stand_in_scene(D, WIDTH, HEIGHT, sampler="pmj02bn"),
+        "Textured": lambda: textured_scene(D, WIDTH, HEIGHT),
+    }
+    out = {"card": smi, "attribution": {}}
+    for label, make in scenes.items():
+        scene, static = compile_scene(make(), device="cuda")
+        spec = sampler_spec(static)
+        if label == "stand-in":
+            log(f"phase 18: profile_pass2's rows, stand-in {WIDTH}x{HEIGHT} [{smi}]")
+            out["rows"] = pp2.stage_rows(scene, static, spec)
+        att = pp2.attribute(lambda: render(scene, static, spec, device="cuda"), dev)
+        out["attribution"][label] = att
+        pp2.print_attribution(f"phase 18: {label} [{smi}]", att)
+        if att["named_share"] < NAMED_SHARE or att["unmatched_launches"]:
+            raise AssertionError(f"phase 18: {label}: named stages {att['named_share']:.4f} of "
+                                 f"the device time, {att['unmatched_launches']} unmatched")
+        idle = [s for s, c in att["stages"].items() if c["launches"] == 0]
+        if idle:  # a renamed function would move its stage's launches elsewhere
+            raise AssertionError(f"phase 18: {label}: no launch attributed to {idle}")
+        if label == "pmj02bn":
+            # render() builds the sampler's tables on each call unless it is
+            # given them: the pass with and without, in turns
+            t0 = time.perf_counter()
+            sampler_spec(static)
+            torch.cuda.synchronize()
+            att["spec_ms"] = (time.perf_counter() - t0) * 1e3
+            passes = {"built": [], "given": []}
+            for k in ("built", "given", "given", "built"):
+                given = spec if k == "given" else None
+                passes[k].append(cuda_ms(torch, lambda: render(scene, static, given,
+                                                               device="cuda"), 3))
+            att["pass_ms"] = {k: float(np.mean(v)) for k, v in passes.items()}
+            log(f"  pmj02bn: the sampler's tables take {att['spec_ms']:.1f} ms of host time to "
+                f"build; pass {att['pass_ms']['built']:.2f} ms when render() builds them, "
+                f"{att['pass_ms']['given']:.2f} ms when it is given them (each the mean of 2 x 3 "
+                f"passes, in turns; CUDA events) [{smi}]")
+        if label == "Textured" and not att["texture_sites"]:
+            raise AssertionError("phase 18: Textured: no texture-fetch site was found")
+        del scene
+    log(f"phase 18: glue_lab at {glue_lab.LANES} lanes [{smi}]")
+    out["glue"] = glue_lab.main("cuda")
+    with open(os.path.join(out_dir, "chip_smoke_phase18.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return out
 
 
 def main() -> int:
@@ -2098,6 +2210,11 @@ def main() -> int:
     lab_rows, lab_out = phase_lab(torch, smi, nvcc_out["lab"])
     log(f"phase 17: {time.time() - t_phase:.1f} s")
 
+    # ---- phase 18: the stage attribution and the glue micro-costs -----------
+    t_phase = time.time()
+    measure = phase_measure(torch, D, smi, out_dir)
+    log(f"phase 18: {time.time() - t_phase:.1f} s")
+
     mixed_run = passes["Mixed"]
     chosen = mixed_run["variants"][f"refill {mk.REFILL} B={mk.MIN_BLOCKS}"]
     rows.append({
@@ -2133,6 +2250,7 @@ def main() -> int:
                    "staged": staged, "pmj02bn": pmj, "integrators": integrators,
                    "textured": textured, "gradients": grads, "files": files,
                    "distributed": distributed, "lab": lab_out,
+                   "measure": {k: measure[k] for k in ("rows", "glue")},
                    "total_s": time.time() - t_start},
                   f, indent=1)
     log(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s")

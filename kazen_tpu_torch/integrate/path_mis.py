@@ -212,6 +212,32 @@ def _shade_prologue(scene, static, st: _OState):
     return li, st.alive & valid
 
 
+def packet_key(pick, cluster, d, alive, smaxt):
+    """The shared packet order's sort key: picked light | path-direction
+    octant | hit cluster | direction Morton. Lanes whose path ray continues
+    sort before shadow-only lanes (the alive-first tier bit), and lanes with
+    nothing to trace sort last."""
+    md = _dmorton(d)
+    key = (
+        (torch.clamp(pick, max=15) << 26)
+        | ((md >> 9) << 23)
+        | (torch.clamp(cluster, 0, 16383) << 9)
+        | (md & 0x1FF)
+    )
+    key = torch.where(alive, key, key | (1 << 30))
+    return torch.where(alive | (smaxt >= 0.0), key, _SENTINEL)
+
+
+def _packet_permute(key, columns, stream, lane):
+    """The ordered permute: a stable argsort of ``key``, then one (N, 24)
+    gather of the lane state's float ``columns`` and one (N, 7) gather of its
+    stream and pixel-order lane id. Returns (floats, stream, lane)."""
+    order = torch.argsort(key, stable=True)
+    fl = torch.cat(columns, dim=1)[order]
+    ints = torch.stack([*stream, lane], dim=1)[order]
+    return fl, streams.StreamState(*ints[:, :6].unbind(1)), ints[:, 6]
+
+
 def _bounce_ordered(scene, static, spec, st: _OState, draw_rr: bool) -> _OState:
     """One bounce. The shade stage runs in the order of the trace that made
     ``st.rows``; then one permute moves rays and state into the next packet
@@ -328,36 +354,20 @@ def _bounce_ordered(scene, static, spec, st: _OState, draw_rr: bool) -> _OState:
     lane = st.lane
 
     if _ordering_useful(scene):
-        # one permute into the next shared packet order: picked light |
-        # path-direction octant | hit cluster | direction Morton. Lanes whose
-        # path ray continues sort before shadow-only lanes (the alive-first
-        # tier bit), and lanes with nothing to trace sort last.
-        md = _dmorton(pd)
-        key = (
-            (torch.clamp(pick, max=15) << 26)
-            | ((md >> 9) << 23)
-            | (torch.clamp(its.cluster, 0, 16383) << 9)
-            | (md & 0x1FF)
-        )
-        key = torch.where(alive, key, key | (1 << 30))
-        key = torch.where(alive | (smaxt >= 0.0), key, _SENTINEL)
-        order = torch.argsort(key, stable=True)
-
-        fl = torch.cat(
+        key = packet_key(pick, its.cluster, pd, alive, smaxt)
+        fl, stream, lane = _packet_permute(
+            key,
             [
                 p, nee_wi, smaxt[:, None], pd, li, throughput, eta[:, None],
                 accum[:, None], contrib, bsdf_pdf[:, None],
                 discrete[:, None].to(torch.float32), alive[:, None].to(torch.float32),
             ],
-            dim=1,
-        )[order]
+            stream, lane,
+        )
         p, nee_wi, smaxt, pd = fl[:, 0:3], fl[:, 3:6], fl[:, 6], fl[:, 7:10]
         li, throughput, eta, accum = fl[:, 10:13], fl[:, 13:16], fl[:, 16], fl[:, 17]
         contrib, bsdf_pdf = fl[:, 18:21], fl[:, 21]
         discrete, alive = fl[:, 22] > 0.5, fl[:, 23] > 0.5
-        ints = torch.stack([*stream, lane], dim=1)[order]
-        stream = streams.StreamState(*ints[:, :6].unbind(1))
-        lane = ints[:, 6]
 
     # shadow trace, then path trace, in the shared order
     if n_strat > 0:

@@ -52,12 +52,26 @@
 // K5 kz_chain_probe replaces the `vpu_kernel` closure of
 //   benchmarks/mxu_lab.py:main (line 127): 32 reps of the sign-folded
 //   Moller-Trumbore acceptance chain on the four 128-row slices of a
-//   (512, n), acc = min(acc, tt + r) from 0, out (128, n). One thread per
-//   output element; the slices are re-read after a compiler barrier each
-//   rep. The reciprocal is rcp.approx.ftz.f32, as the original's
-//   pl.reciprocal(approx=True). Bound: ~2.6 MB and ~80 MFLOP at n = 1024,
-//   about 1 us, below the launch latency.
-//
+//   (512, n), acc = min(acc, tt + r) from 0, out (128, n). Bound by
+//   operations: 19 f32 operations an element and rep, 4.19 M element-reps at
+//   n = 1024, 1.19 us at 67 TFLOP/s (2.6 MB of bytes, 0.78 us). On the CUDA
+//   cores none of them fuses into an FMA, and the issue rate (one
+//   instruction a lane and clock) sets the pace: the test and its update of
+//   acc take ~21 instructions an element-rep, 2.6 us at the H100's 1.98 GHz
+//   boost clock with no stall, on top of a launch's own floor (an empty kernel's device
+//   time, which chip_smoke.py's phase 17 measures). Design: four lanes a
+//   thread (16-byte loads), blocks of one warp, 8 an SM, each block a
+//   contiguous equal share of the lanes so that every SM gets the same work.
+//   A block stages its slices into shared memory once (the original's VMEM);
+//   each rep re-reads all four from there with volatile 16-byte loads, so
+//   the compiler can neither reuse one rep's values in the next nor drop a
+//   read (with plain global re-reads behind a compiler barrier, as an
+//   earlier one-lane version of this kernel had them, ptxas merges the
+//   loads and the tests of 3 of every 4 reps: it did about half the work).
+//   The reads of 4 reps go first, then their 16 chains, which are
+//   independent. Each test is chain(), K6's: the probe prices the
+//   instructions the leaf test runs. A rejected test leaves acc as it is
+//   and is skipped by predication.
 // K6 kz_drain_probe replaces benchmarks/visit_lab.py:make_drain (line 45):
 //   per block of 1024 lanes, `visits` simulated leaf visits. A visit copies
 //   geo[cid] (cid = (7 b + 13 i) mod 256) to the block's buffer, forms
@@ -110,8 +124,8 @@
 //   there (the TPU runs the grid in order on one core), and here is ones
 //   for every block.
 //
-// The chain (shared by K5 and K6) is written in round-to-nearest steps
-// where a product is inexact, so nvcc cannot fuse it into an FMA; the
+// The chain (K5 and K6) is written in round-to-nearest
+// steps where a product is inexact, so nvcc cannot fuse it into an FMA; the
 // products by s = +-1 are exact. With finite inputs fminf and jnp.minimum
 // agree. Optional diagnostics per lane (null pointers turn them off): the
 // count of accepted tests, the least accepted tt (3e38 when none) and, for
@@ -132,7 +146,6 @@ constexpr int WG_ROWS = 64;      // rows of its wgmma accumulator
 enum MmMode { MM_HIGHEST = 0, MM_DEFAULT = 1, MM_BF16 = 2 };
 
 constexpr int CHAIN_ROWS = 128;
-constexpr int CHAIN_THREADS = 256;
 
 constexpr int DRAIN_LANES = 1024;
 constexpr int GEO_SLOTS = 256;
@@ -345,28 +358,100 @@ int launch_mm(const void* w, const void* f, float* out, int M, int K, int N, int
 // K5
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(CHAIN_THREADS)
-chain_kernel(const float* a, float* out, int* count, float* tmin, int n, int reps) {
-  const int i = blockIdx.x * CHAIN_THREADS + threadIdx.x;
-  if (i >= CHAIN_ROWS * n) return;
-  const size_t slice = (size_t)CHAIN_ROWS * n;
-  float acc = 0.f, lo = BIG;
-  int accepted = 0;
-  for (int r = 0; r < reps; ++r) {
-    asm volatile("" ::: "memory");  // the slices are read anew each rep
+// Four floats of the shared slab at p, read with one volatile 16-byte load:
+// the compiler may neither reuse an earlier rep's values nor drop the load.
+__device__ __forceinline__ void ld_shared_volatile4(const float* p, float (&v)[4]) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ld.volatile.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3]) : "r"(s));
+}
+
+constexpr int CHAIN_LANES = 4;     // lanes a thread (16-byte loads)
+constexpr int CHAIN_THREADS = 32;  // one warp a block
+constexpr int CHAIN_BLOCKS_PER_SM = 8;
+constexpr int CHAIN_BATCH = 4;     // reps whose slices are read together
+
+// One rep of a thread's lanes, on the slices it read (v[k][l]: slice k,
+// lane l). A rejected test leaves acc as it is (tt = BIG there, BIG + r is
+// BIG, and acc <= 0), so acc is updated only where the test passes.
+template <bool DIAG>
+__device__ __forceinline__ void chain_rep(const float (&v)[4][CHAIN_LANES], float rf,
+                                          float (&acc)[CHAIN_LANES], float (&lo)[CHAIN_LANES],
+                                          int (&accepted)[CHAIN_LANES]) {
+#pragma unroll
+  for (int l = 0; l < CHAIN_LANES; ++l) {
     bool ok;
-    const float tt = chain(a[i], a[slice + i], a[2 * slice + i], a[3 * slice + i], ok);
-    acc = fminf(acc, __fadd_rn(tt, (float)r));
+    const float tt = chain(v[0][l], v[1][l], v[2][l], v[3][l], ok);
     if (ok) {
-      ++accepted;
-      lo = fminf(lo, tt);
+      acc[l] = fminf(acc[l], __fadd_rn(tt, rf));
+      if (DIAG) {
+        ++accepted[l];
+        lo[l] = fminf(lo[l], tt);
+      }
     }
   }
-  out[i] = acc;
-  if (count != nullptr) {
-    count[i] = accepted;
-    tmin[i] = lo;
+}
+
+// CHAIN_LANES consecutive lanes a thread (a group); block b takes groups
+// [b G / grid, (b + 1) G / grid), so every SM gets the same share. Each rep
+// reads all four slices anew from shared memory (volatile: every read is
+// made); the reads of CHAIN_BATCH reps go first, then their chains.
+template <bool DIAG>
+__global__ void __launch_bounds__(CHAIN_THREADS)
+chain_kernel(const float* __restrict__ a, float* __restrict__ out, int* __restrict__ count,
+             float* __restrict__ tmin, int groups, int reps) {
+  constexpr int L = CHAIN_LANES, U = CHAIN_BATCH;
+  __shared__ __align__(16) float slab[4][CHAIN_THREADS * L];
+  const size_t slice = (size_t)groups * L;  // floats in one of the four slices
+  const int begin = (int)((long long)blockIdx.x * groups / gridDim.x);
+  const int end = (int)((long long)(blockIdx.x + 1) * groups / gridDim.x);
+  const float* mine[4] = {&slab[0][threadIdx.x * L], &slab[1][threadIdx.x * L],
+                          &slab[2][threadIdx.x * L], &slab[3][threadIdx.x * L]};
+  for (int g = begin + (int)threadIdx.x; g < end; g += CHAIN_THREADS) {
+    const size_t i = (size_t)g * L;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {  // the block's one read of the input
+      float x[L];
+      load_vec<L>(a + k * slice + i, x);
+      store_vec<L>(&slab[k][threadIdx.x * L], x);
+    }
+    float acc[L], lo[L];
+    int accepted[L];
+#pragma unroll
+    for (int l = 0; l < L; ++l) acc[l] = 0.f, lo[l] = BIG, accepted[l] = 0;
+    int r = 0;
+    for (; r + U <= reps; r += U) {
+      float v[U][4][L];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) ld_shared_volatile4(mine[k], v[u][k]);
+#pragma unroll
+      for (int u = 0; u < U; ++u) chain_rep<DIAG>(v[u], (float)(r + u), acc, lo, accepted);
+    }
+    for (; r < reps; ++r) {
+      float v[4][L];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) ld_shared_volatile4(mine[k], v[k]);
+      chain_rep<DIAG>(v, (float)r, acc, lo, accepted);
+    }
+    store_vec<L>(out + i, acc);
+    if (DIAG) {
+      *reinterpret_cast<int4*>(count + i) =
+          make_int4(accepted[0], accepted[1], accepted[2], accepted[3]);
+      store_vec<L>(tmin + i, lo);
+    }
   }
+}
+
+__global__ void empty_kernel() {}
+
+int chain_blocks(int groups) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int blocks = sms * CHAIN_BLOCKS_PER_SM;
+  return groups < blocks ? groups : blocks;
 }
 
 // ---------------------------------------------------------------------------
@@ -771,12 +856,25 @@ int kz_mm_probe(const void* w, const void* f, float* out, int M, int K, int N, i
   }
 }
 
-// a (512, n) f32 -> out (128, n); count (int) and tmin (f32), (128, n), or null.
+// a (512, n) f32, 16-byte aligned -> out (128, n); count (int) and tmin
+// (f32), (128, n), or both null.
 int kz_chain_probe(const float* a, float* out, int* count, float* tmin, int n, int reps,
                    cudaStream_t stream) {
-  const int total = CHAIN_ROWS * n;
-  chain_kernel<<<(total + CHAIN_THREADS - 1) / CHAIN_THREADS, CHAIN_THREADS, 0, stream>>>(
-      a, out, count, tmin, n, reps);
+  const int groups = CHAIN_ROWS * n / CHAIN_LANES;
+  const int blocks = chain_blocks(groups);
+  if (count != nullptr)
+    chain_kernel<true>
+        <<<blocks, CHAIN_THREADS, 0, stream>>>(a, out, count, tmin, groups, reps);
+  else
+    chain_kernel<false>
+        <<<blocks, CHAIN_THREADS, 0, stream>>>(a, out, count, tmin, groups, reps);
+  return (int)cudaGetLastError();
+}
+
+// An empty kernel at kz_chain_probe's launch shape for n: the floor of a
+// launch of that shape on the card.
+int kz_chain_empty(int n, cudaStream_t stream) {
+  empty_kernel<<<chain_blocks(CHAIN_ROWS * n / CHAIN_LANES), CHAIN_THREADS, 0, stream>>>();
   return (int)cudaGetLastError();
 }
 

@@ -294,7 +294,7 @@ def test_visit_main_on_cpu(capsys):
 def test_kernels_match_plain_on_card():
     """Phase 17's kernel-against-plain checks of chip_smoke.py at small
     sizes: K4 at each precision and at K = 8, 40 and 64 (the f32 loop, bit
-    for bit); K5; K6 at each configuration (DEFAULT and bf16 on the tensor
+    for bit); K5 on three inputs, and its floor's empty kernel; K6 at each configuration (DEFAULT and bf16 on the tensor
     cores) with its diagnostics, on seeded geo, on integer geo (every sum
     exact) and at K = 100 and 36, not multiples of its 64-test chunk."""
     if not torch.cuda.is_available():
@@ -313,10 +313,20 @@ def test_kernels_match_plain_on_card():
             torch.cuda.synchronize()
             assert mxu_t.MM_PROBE.launches == before + 1
             assert torch.equal(got, want)
-    a = torch.from_numpy(rng.random((512, 256), dtype=np.float32)).to(dev)
-    got, want = mxu_t.chain_probe_cuda(a, diag=True), mxu_t.chain_probe_plain(a, diag=True)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    torch.testing.assert_close(got[2], want[2], rtol=1e-6, atol=0)
+    # K5 on the original's input, the diagnostics' and one of signed zeros
+    # and halves (tests of det = +-0 are rejected by both signs' rule)
+    zeros = np.array([0.0, -0.0, 0.5, -0.5, 1.0, -1.0, 0.25], np.float32)
+    for x in (rng.random((512, 256), dtype=np.float32),
+              rng.uniform(-1.0, 1.0, (512, 1000)).astype(np.float32),
+              rng.choice(zeros, (512, 64))):
+        a = torch.from_numpy(x).to(dev)
+        got, want = mxu_t.chain_probe_cuda(a, diag=True), mxu_t.chain_probe_plain(a, diag=True)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        torch.testing.assert_close(got[2], want[2], rtol=1e-6, atol=0)
+    before = mxu_t.CHAIN_PROBE.launches
+    mxu_t.chain_empty_cuda(a)
+    torch.cuda.synchronize()
+    assert mxu_t.CHAIN_PROBE.launches == before  # the floor's launch is not K5's
     padded = [("", 1, 100, "DEFAULT", False, True, True), ("", 4, 36, "DEFAULT", True, True, True)]
     for _, qp, kt, prec, bf16, fetch, dma in list(visit_t.CONFIGS) + padded:
         args = (VISITS, qp, kt, prec, fetch, dma, BLOCKS)
@@ -331,3 +341,4 @@ def test_kernels_match_plain_on_card():
                     torch.testing.assert_close(x, y, rtol=1e-6, atol=0)
                 else:
                     assert torch.equal(x, y)
+

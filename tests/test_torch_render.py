@@ -187,6 +187,7 @@ def test_port_imports_neither_jax_nor_kazen_tpu():
         "shade/medium.py", "utils/metrics.py", "shade/textures.py", "shade/lights.py",
         "diff/inverse.py", "film/checkpoint.py", "scene/obj.py", "scene/xml_io.py",
         "dist/sharding.py", "dist/multihost.py", "cli/main.py", "cli/__main__.py",
+        "lab/profile_pass2.py", "lab/glue_lab.py",
     ):
         assert module in seen, module
     # the pmj02bn tables are the port's own copy, not read from kazen_tpu
