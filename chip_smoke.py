@@ -12,16 +12,19 @@ Textured 1080p (the stand-in with image textures, a normal map, the rough*
 models and an importance-sampled sky), inverse rendering (optimize), the
 XML/OBJ/PNG/EXR front end with checkpoints and the CLI, and dist/ on nccl.
 A third path is the lab probes' tables (kazen_tpu_torch/lab/, K4-K6).
+BASELINE.json's configurations 1-5 run on the wavefront at their published
+sizes; the megakernel's cliff and K1's split between node steps and leaves
+are measured by the ports of benchmarks/megakernel_cliff.py and
+benchmarks/kernel_ablate.py.
 
 Phases (each check raises; the script exits non-zero on the first failure):
 
 0. Build the CUDA trace kernels, the megakernel and the lab probes (nvcc,
    sm_90a, one library each) and the native BVH builder (g++) from the
    sources in the checkout, in parallel; log each kernel's registers and
-   spills (K1/K2's
-   serial and cooperative drains are one kernel, so one line serves both;
-   K3's for each instance __launch_bounds__(128, B), B in
-   MIN_BLOCKS_CHOICES).
+   spills (K1/K2's serial and cooperative drains are one kernel, so one
+   line serves both; K1's nofetch instance has its own; K3's for each
+   instance __launch_bounds__(128, B), B in MIN_BLOCKS_CHOICES).
 1. K1/K2 against their plain PyTorch versions on the card, on the stand-in
    scene (Cornell box + a 36,864-triangle kiss sphere): 262,144 seeded
    random rays and one 1920x1080 frame of camera rays; and against their
@@ -141,7 +144,39 @@ Phases (each check raises; the script exits non-zero on the first failure):
     Textured's texture-fetch sites; then every row of glue_lab.py at
     2,073,600 lanes, each alternative equal to its plain row.
 
-Each of phases 10-18 logs its seconds, and the script its total.
+19. BASELINE.json's configurations (phase_baseline,
+    kazen_tpu_torch/examples/baseline_configs.py): configs 1-4 at 64
+    pixels wide (config 4 64x36), 1 spp, card against the CPU port; config
+    1 at 64x64, 16 spp, through render(), the card's image against the
+    CPU's; configs 1-4 at their published sizes and spp, save configs 2
+    and 3 at BASELINE_SPP's 9 and 8 (their published spp run through the
+    module on its own), by run_config, with the launch counts set to 0 before each and read after
+    (K1 and K2 on every pass, K3 never): ms a pass, rays/s, pixel-samples/s,
+    K1/K2 launches a pass, and one pass under torch.profiler (device ms,
+    launches, busy share; config 4 also with its pmj02bn tables built by
+    render() and given to it); config 5 (optimize, 80 steps at 64x64): ms a
+    step, losses finite and falling, the recovered roughness within
+    CONFIG5_TOLERANCE of kazen_tpu's on the CPU, and its first step's
+    loss and gradients against the CPU port's (rtol 1e-3, gradients atol
+    1e-3 x the table's largest).
+20. The megakernel route's cliff (phase_cliff,
+    kazen_tpu_torch/lab/megakernel_cliff.py) at 960x540 and 1920x1080: the
+    constant box through K3 (K3 once a pass, no K1/K2) and the textured one
+    through the wavefront (K1 and K2, no K3), cliff_x; the sweep of the box
+    plus a sphere at 12-124 faces through both routes, each K3 pass held by
+    check_li to its wavefront pass.
+21. K1's split between node steps and leaves (phase_ablate,
+    kazen_tpu_torch/lab/kernel_ablate.py): K1 and its nofetch instance on
+    13 ray sets of the stand-in (the 1080p pass's K1 launches, bounce 1
+    sorted and unsorted at 960x540 and 1080p, random rays, a camera frame),
+    the nofetch rows equal to the default's on every lane; the original's
+    columns, K2 on the original's rays, the least-squares fit of K1's ms on
+    the warps' node steps and triangle tests; K1's rows 0-36 against the
+    plain walk on 65,536 bounce-1 lanes.
+
+Each of phases 10-21 logs its seconds, and the script its total. Phases
+17-21 can run alone after phase 0's builds (phase_lab, phase_measure,
+phase_baseline, phase_cliff, phase_ablate).
 Every comparison of radiance holds PERF.md's gate: per-lane radiance within
 rtol 1e-3 / atol 1e-4 on >= 99% of lanes, channel means within 0.5% and ray
 totals within 0.1%.
@@ -157,7 +192,6 @@ import dataclasses
 import json
 import os
 import re
-import subprocess
 import sys
 import tempfile
 import time
@@ -170,6 +204,9 @@ import numpy as np
 WIDTH, HEIGHT, DEPTH = 1920, 1080, 5
 SPHERE_NU, SPHERE_NV = 192, 96
 SMALL_W, SMALL_H = 64, 36
+# the frame of the original measuring scripts (benchmarks/megakernel_cliff.py,
+# benchmarks/kernel_ablate.py)
+ORIGINAL_W, ORIGINAL_H = 960, 540
 N_RANDOM = 262_144
 N_WALK = 65_536  # lanes held against the plain walk per ray set
 SEED = 7
@@ -412,14 +449,6 @@ def toy_scene(D, width, height):
 # ---------------------------------------------------------------------------
 
 
-def nvidia_smi_line() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return res.stdout.strip().splitlines()[0]
-
-
 def cuda_ms(torch, fn, reps: int) -> float:
     """Mean ms of ``fn`` over ``reps`` calls, timed with CUDA events."""
     start = torch.cuda.Event(enable_timing=True)
@@ -430,17 +459,6 @@ def cuda_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def random_rays(torch, n, device):
-    rng = np.random.RandomState(SEED)
-    o = np.array([[0.0, 1.0, -1.0]], np.float32) + 0.5 * rng.randn(n, 3).astype(np.float32)
-    d = rng.randn(n, 3).astype(np.float32)
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    return (
-        torch.as_tensor(o, device=device), torch.as_tensor(d, device=device),
-        torch.full((n,), 1e-4, device=device), torch.full((n,), 3.0e38, device=device),
-    )
 
 
 def camera_rays(torch, scene, static, spec, sample=0):
@@ -530,6 +548,31 @@ def simt_efficiency(torch, row) -> float:
     warps = torch.nn.functional.pad(x, (0, (-x.shape[0]) % 32)).view(-1, 32)
     peak = warps.max(1).values.mean().item()
     return x.mean().item() / peak if peak > 0 else 1.0
+
+
+def trace_registers(ptxas: str) -> dict:
+    """{instance: (registers, spill-store bytes)} of the trace kernels from
+    ptxas's report: K1 (nearest_kernel<true>), its lab instance without the
+    winner fetch (nearest_kernel<false>) and K2 (empty when nothing was
+    compiled)."""
+    names = {"nearest_kernelILb1E": "K1", "nearest_kernelILb0E": "K1 nofetch",
+             "any_hit_kernel": "K2"}
+    found, cur = {}, None
+    for line in ptxas.splitlines():
+        if "Compiling entry" in line:
+            cur = next((v for k, v in names.items() if k in line), None)
+            continue
+        if cur is None:
+            continue
+        regs, spill = found.get(cur, (0, 0))
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            regs = int(m.group(1))
+        found[cur] = (regs, spill)
+    return found
 
 
 def k3_registers(ptxas: str) -> dict:
@@ -648,8 +691,13 @@ def k3_variants(torch, mk, sc, st, o, d, stream, ref, label, smi):
 
 def device_times(torch, fn):
     """One call of ``fn`` (after a warm-up call) under torch.profiler: (wall
-    ms, {kernel name: (device ms, launches)})."""
+    ms, {kernel name: (device ms, launches)}). The session's raw events are
+    read as they are (kazen_tpu_torch.lab.device_activities): parsing them
+    into FunctionEvents (``prof.events()``) takes ~60 us an event, seconds
+    for a pass of tens of thousands of launches."""
     from torch.profiler import ProfilerActivity, profile
+
+    from kazen_tpu_torch.lab import device_activities
 
     fn()
     torch.cuda.synchronize()
@@ -659,10 +707,9 @@ def device_times(torch, fn):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0:
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.device_time_total / 1e3, n + 1)
+    for e in device_activities(prof.profiler.kineto_results.events()):
+        ms, n = by_name.get(e.name(), (0.0, 0))
+        by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
     return wall_ms, by_name
 
 
@@ -1694,6 +1741,266 @@ def phase_measure(torch, D, smi, out_dir):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: BASELINE.json's configurations
+# ---------------------------------------------------------------------------
+
+# the spp each configuration renders at in phase 19 (None: its published
+# spp); the published spp of the cut ones run through the module on its own
+# (python -m kazen_tpu_torch.examples.baseline_configs N; PERF.md §4)
+BASELINE_SPP = {1: None, 2: 9, 3: 8, 4: None}
+# what examples/baseline_configs.py 5 prints for kazen_tpu on the CPU
+# (`JAX_PLATFORMS=cpu python examples/baseline_configs.py 5`: "recovered
+# roughness 0.514 (true 0.35)"); the card's optimize must land within
+# CONFIG5_TOLERANCE of it. The value after 80 Adam steps moves with the
+# order of the backward's sums (PERF.md §5): eight card runs (atomics) gave
+# 0.4957-0.5463, torch's deterministic mode 0.4969, the port on the CPU
+# 0.4931. Adam moves every material field by ~lr a step whatever the size
+# of its gradient, so a field whose gradient is summation noise takes
+# either sign; the card's first step is held to the CPU's by its loss
+# (rtol 1e-3) and gradients (rtol 1e-3, atol 1e-3 x the largest |gradient|
+# of the table: a float sum's error scales with its terms, not its total)
+CONFIG5_ROUGHNESS = 0.514
+CONFIG5_TOLERANCE = 0.05
+CONFIG5_CHECK_SIZE = 16  # the frame of the first step held to the CPU's
+
+
+def phase_baseline(torch, smi, kernels, out_dir):
+    """Phase 19: examples/baseline_configs.py's configurations 1-5 through
+    kazen_tpu_torch/examples/baseline_configs.py on the card. Configs 1-4 at
+    64 pixels wide (config 4 64x36), 1 spp, card against the CPU port;
+    config 1 at 64x64, 16 spp, through render(), the card's image against
+    the CPU's; configs 1-4 at their published sizes (and BASELINE_SPP) by
+    run_config, with the launch counts set to 0 before each and read after
+    (K1 and K2 on every pass, K3 never), the image finite with mean > 0;
+    one pass of each under torch.profiler (config 4 also with its sampler's
+    tables built by render() and given to it, in turns); config 5
+    (run_inverse): losses finite and falling, the recovered roughness within
+    CONFIG5_TOLERANCE of CONFIG5_ROUGHNESS, its first step's loss and
+    gradients against the CPU's, and one step under the profiler. Writes
+    baseline_configs.json and the images to out_dir."""
+    from kazen_tpu_torch.diff import inverse
+    from kazen_tpu_torch.examples import baseline_configs as bc
+    from kazen_tpu_torch.film.io import save_png
+    from kazen_tpu_torch.integrate.render import render, sampler_spec
+    from kazen_tpu_torch.scene.compiler import compile_scene
+
+    out = {"card": smi, "small": {}, "configs": {}}
+    t0 = time.time()
+    for n in (1, 2, 3, 4):
+        w, h = (64, 36) if n == 4 else (64, 64)
+        err, share = check_li(
+            torch, li_lanes(torch, *compile_scene(bc.at_size(bc.config_scene(n), w, h), "cuda")),
+            li_lanes(torch, *compile_scene(bc.at_size(bc.config_scene(n), w, h), "cpu")),
+            f"config {n} {w}x{h} pass, card vs CPU", 19)
+        out["small"][n] = {"max_abs_err": err, "share": share}
+    desc = bc.config_scene(1)
+    card_img = render(*compile_scene(desc, "cuda"), device="cuda")
+    cpu_img = render(*compile_scene(desc, "cpu"), device="cpu")
+    err, share = check_li(torch, (card_img, None), (cpu_img, None),
+                          "config 1 64x64 16 spp render(), card vs CPU", 19)
+    out["config1_16spp"] = {"max_abs_err": err, "share": share}
+    log(f"phase 19: the card-vs-CPU checks took {time.time() - t0:.1f} s")
+
+    for n in (1, 2, 3, 4):
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        res = bc.run_config(n, BASELINE_SPP[n], "cuda", verbose=False)
+        counts = {name: k.launches for name, k in kernels.items()}
+        img = res.pop("image")
+        passes = res["spp"]
+        if counts["K3"] or counts["K1"] < passes or counts["K2"] < passes:
+            raise AssertionError(f"phase 19: config {n}: launches {counts} over {passes} passes")
+        if not bool(torch.isfinite(img).all()) or not img.mean().item() > 0.0:
+            raise AssertionError(f"phase 19: config {n}: image not finite with mean > 0")
+        res["launches"] = counts
+        res["image_mean"] = img.mean().item()
+        save_png(os.path.join(out_dir, f"baseline_config{n}.png"), img.cpu())
+        scene, static = compile_scene(bc.config_scene(n), "cuda")
+        spec = sampler_spec(static)
+        prof = profile_pass(torch, lambda: render(scene, static, spec, spp=1, device="cuda"),
+                            out_dir, f"baseline_config{n}")
+        res["profile"] = {k: prof[k] for k in ("wall_ms", "device_ms", "busy_share",
+                                                "trace_kernel_ms", "kernel_launches")}
+        log(f"phase 19: config {n} {res['width']}x{res['height']} @ {passes} spp "
+            f"({res['sampler']}, {res['faces']} faces, {res['clusters']} clusters, compiled in "
+            f"{res['compile_s']:.2f} s, sampler tables {res['spec_ms']:.1f} ms): "
+            f"{res['render_s']:.3f} s, {res['ms_per_pass']:.2f} ms a pass (passes "
+            f"{res['pass_ms_min']:.2f} / {res['pass_ms_median']:.2f} / {res['pass_ms_max']:.2f} "
+            f"ms min / median / max), {res['rays_per_s']:.4g} rays/s, "
+            f"{res['pixel_samples_per_s']:.4g} pixel-samples/s; K1/K2 "
+            f"{counts['K1'] / passes:g}/{counts['K2'] / passes:g} a pass, K3 {counts['K3']} "
+            f"[{smi}]")
+        log(f"phase 19: config {n} one pass under torch.profiler: {prof['wall_ms']:.2f} ms, "
+            f"device {prof['device_ms']:.2f} ms in {prof['kernel_launches']} launches, busy "
+            f"{prof['busy_share']:.3f}, trace kernels {prof['trace_kernel_ms']:.2f} ms [{smi}]")
+        if static.sampler_kind == "pmj02bn":
+            turns = {"built": [], "given": []}
+            for k in ("built", "given", "given", "built"):
+                given = spec if k == "given" else None
+                turns[k].append(cuda_ms(torch, lambda: render(scene, static, given, spp=1,
+                                                              device="cuda"), 1))
+            res["pass_ms_tables"] = {k: float(np.mean(v)) for k, v in turns.items()}
+            log(f"phase 19: config {n} pass {res['pass_ms_tables']['built']:.2f} ms with the "
+                f"sampler's tables built by render(), {res['pass_ms_tables']['given']:.2f} ms "
+                f"given them (each the mean of 2 passes, in turns) [{smi}]")
+        out["configs"][n] = res
+        del scene, img
+    torch.cuda.empty_cache()
+
+    for k in kernels.values():
+        k.launches = 0
+    res = bc.run_inverse("cuda")
+    counts = {name: k.launches for name, k in kernels.items()}
+    losses = np.asarray(res["losses"])
+    got = res["recovered_roughness"]
+    log(f"phase 19: config 5 {res['width']}x{res['height']}, {res['steps']} steps of "
+        f"{res['spp_per_step']} spp: {res['ms_per_step']:.2f} ms a step (min "
+        f"{min(res['step_ms']):.2f}, max {max(res['step_ms']):.2f}), target {res['target_ms']:.1f} "
+        f"ms; loss {losses[0]:.6g} -> {losses[-1]:.6g}; recovered roughness {got:.4f} (true "
+        f"{res['true_roughness']}, kazen_tpu on the CPU {CONFIG5_ROUGHNESS}); launches {counts} "
+        f"[{smi}]")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 19: config 5: losses {losses[0]} -> {losses[-1]}")
+    if abs(got - CONFIG5_ROUGHNESS) > CONFIG5_TOLERANCE or counts["K3"] or not counts["K1"]:
+        raise AssertionError(f"phase 19: config 5 recovered roughness {got} (kazen_tpu "
+                             f"{CONFIG5_ROUGHNESS}), launches {counts}")
+    first = {}
+    for dev in ("cpu", "cuda"):  # at 16x16: the CPU's side at 64x64 takes a minute
+        a, st = bc.inverse_scene(CONFIG5_CHECK_SIZE, device=dev)
+        if dev == "cpu":
+            cpu_target = render(bc.with_roughness(a, bc.TRUE_ROUGHNESS), st, spp=8, device="cpu")
+        params = inverse.as_leaves(inverse.get_params(a, ("materials",)))
+        img = inverse.render_image(a, st, sampler_spec(st, a.device), params, [0, 1])
+        loss = inverse.image_loss(img, cpu_target.to(a.device))
+        loss.backward()
+        first[dev] = (loss.item(), {f: v.grad.detach().cpu() for f, v in params["materials"].items()
+                                    if v.grad is not None})
+    (loss_g, g_g), (loss_c, g_c) = first["cuda"], first["cpu"]
+    scale = max(g.abs().max().item() for g in g_c.values())
+    diff = {f: (g_g[f] - g).abs().max().item() / scale for f, g in g_c.items()}
+    loss_rel = abs(loss_g - loss_c) / loss_c
+    log(f"phase 19: config 5's first step at {CONFIG5_CHECK_SIZE}x{CONFIG5_CHECK_SIZE}, card vs "
+        f"CPU on the CPU's target: loss within "
+        f"{loss_rel:.3g} (relative); each field's gradient within {max(diff.values()):.3g} x the "
+        f"largest |gradient| ({scale:.3g}): {({f: round(v, 6) for f, v in diff.items()})}")
+    if not (loss_rel <= 1e-3 and set(g_g) == set(g_c) and all(
+            torch.allclose(g_g[f], g, rtol=1e-3, atol=1e-3 * scale) for f, g in g_c.items())):
+        raise AssertionError(f"phase 19: config 5's first step, card vs CPU: loss {loss_rel}, "
+                             f"gradients {diff}")
+    res["first_step_vs_cpu"] = {"loss_rel": loss_rel, "grad_err_by_field": diff, "scale": scale}
+    arrays, static = bc.inverse_scene(device="cuda")
+    spec = sampler_spec(static)
+    target = render(bc.with_roughness(arrays, bc.TRUE_ROUGHNESS), static, spp=8, device="cuda")
+
+    def one_step():
+        params = inverse.as_leaves(inverse.get_params(arrays, ("materials",)))
+        img = inverse.render_image(arrays, static, spec, params, [0, 1])
+        loss = inverse.image_loss(img, target)
+        loss.backward()
+
+    prof = profile_pass(torch, one_step, out_dir, "baseline_config5_step")
+    res["launches"] = counts
+    res["profile"] = {k: prof[k] for k in ("wall_ms", "device_ms", "busy_share",
+                                            "trace_kernel_ms", "kernel_launches")}
+    log(f"phase 19: config 5 one step under torch.profiler: {prof['wall_ms']:.2f} ms, device "
+        f"{prof['device_ms']:.2f} ms in {prof['kernel_launches']} launches, busy "
+        f"{prof['busy_share']:.3f} [{smi}]")
+    out["configs"][5] = res
+    with open(os.path.join(out_dir, "baseline_configs.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the megakernel route's cliff
+# ---------------------------------------------------------------------------
+
+
+def phase_cliff(torch, smi, kernels, out_dir):
+    """Phase 20: kazen_tpu_torch/lab/megakernel_cliff.py at 960x540 and
+    1920x1080, with the launch counts set to 0 before each and read after:
+    the constant box launches K3 once a pass and no K1/K2, the textured one
+    K1 and K2 and no K3, and so do the sweep's two routes; each K3 pass is
+    held by check_li to the same scene's wavefront pass. Writes
+    megakernel_cliff.json to out_dir."""
+    from kazen_tpu_torch.lab import megakernel_cliff as mc
+
+    out = {}
+    for w, h in ((ORIGINAL_W, ORIGINAL_H), (WIDTH, HEIGHT)):
+        for k in kernels.values():
+            k.launches = 0
+        res = mc.main("cuda", (w, h),
+                      check=lambda label, got, want: check_li(torch, got, want, label, 20))
+        counts = {name: k.launches for name, k in kernels.items()}
+        k3_only, wavefront = [res["const"]], [res["image_texture"]]
+        for row in res["sweep"]:
+            k3_only.append(row["megakernel"])
+            wavefront.append(row["wavefront"])
+        bad = [r for r in k3_only if r["launches"] != {"K1": 0, "K2": 0, "K3": 1}]
+        bad += [r for r in wavefront
+                if r["launches"]["K3"] or not (r["launches"]["K1"] and r["launches"]["K2"])]
+        if bad or min(counts.values()) < 1:
+            raise AssertionError(f"phase 20: {w}x{h}: routes' launches {bad}, in all {counts}")
+        log(f"phase 20: {w}x{h}: const (K3) {res['const']['pass_seconds'] * 1e3:.3f} ms a pass "
+            f"({res['const']['pass_ms']}), image_texture (wavefront) "
+            f"{res['image_texture']['pass_seconds'] * 1e3:.3f} ms "
+            f"({res['image_texture']['pass_ms']}): cliff_x {res['cliff_x']:.4g}; crossover "
+            + (f"at {res['crossover_faces']} faces" if res["crossover_faces"] else "none up to 128")
+            + f"; launches {counts} [{smi}]")
+        for row in res["sweep"]:
+            log(f"phase 20: {w}x{h} {row['faces']:4d} faces: K3 "
+                f"{row['megakernel']['pass_seconds'] * 1e3:.3f} ms, wavefront "
+                f"{row['wavefront']['pass_seconds'] * 1e3:.3f} ms a pass (x{row['ratio']:.4g}) "
+                f"[{smi}]")
+        out[f"{w}x{h}"] = res
+    with open(os.path.join(out_dir, "megakernel_cliff.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 21: K1's split between node steps and leaves
+# ---------------------------------------------------------------------------
+
+
+def phase_ablate(torch, smi, out_dir):
+    """Phase 21: kazen_tpu_torch/lab/kernel_ablate.py on the stand-in (its
+    rows at 960x540, its fit over the 1080p pass's K1 launches, bounce 1
+    sorted and unsorted at both sizes, random rays and a camera frame), with
+    K1's, its nofetch instance's and K2's launch counts set to 0 before and
+    read after: the nofetch rows equal the default instance's rows on every
+    lane of every set; then the default instance's rows 0-36 (and K2's 0-3)
+    against the plain walk on 65,536 lanes of the sorted bounce-1 rays.
+    Writes kernel_ablate.json to out_dir."""
+    from kazen_tpu_torch.accel import cluster_trace as ct
+    from kazen_tpu_torch.integrate.render import sampler_spec
+    from kazen_tpu_torch.lab import kernel_ablate as ka
+    from kazen_tpu_torch.scene.compiler import compile_scene
+
+    lab_kernels = {"K1": ct.NEAREST, "K1 nofetch": ct.NEAREST_NOFETCH, "K2": ct.ANY_HIT}
+    for k in lab_kernels.values():
+        k.launches = 0
+    res = ka.main("cuda", (ORIGINAL_W, ORIGINAL_H), os.path.join(out_dir, "kernel_ablate.json"),
+                  pass_size=(WIDTH, HEIGHT))
+    counts = {name: k.launches for name, k in lab_kernels.items()}
+    differ = {k: r["nofetch_lanes_differing"] for k, r in res["rows"].items()}
+    log(f"phase 21: nofetch rows against the default's over {len(differ)} ray sets: "
+        f"{sum(differ.values())} lanes differ; launches {counts} [{smi}]")
+    if any(differ.values()) or min(counts.values()) < 1:
+        raise AssertionError(f"phase 21: nofetch lanes differing {differ}, launches {counts}")
+    scene, static = compile_scene(ka.stand_in_scene(ORIGINAL_W, ORIGINAL_H), "cuda",
+                                  megakernel=False)
+    rays = ka.bounce1_rays(scene, static, sampler_spec(static))
+    res["walk_share"] = check_walk(torch, ct, scene.trace_tables, rays,
+                                   f"bounce 1 sorted {ORIGINAL_W}x{ORIGINAL_H}", phase=21)
+    res["counts"] = counts
+    return res
+
+
+def main() -> int:
+    import torch
 def main() -> int:
     import torch
 
@@ -1703,8 +2010,10 @@ def main() -> int:
     from kazen_tpu_torch import lab
     from kazen_tpu_torch.accel import cluster_trace as ct
     from kazen_tpu_torch.accel.native import library_path as bvh_library
+    from kazen_tpu_torch.core.device import card_line
     from kazen_tpu_torch.integrate import megakernel as mk
     from kazen_tpu_torch.integrate.render import render, sampler_spec
+    from kazen_tpu_torch.lab import kernel_ablate
     from kazen_tpu_torch.scene import description as D
     from kazen_tpu_torch.scene.compiler import compile_scene
 
@@ -1724,7 +2033,7 @@ def main() -> int:
                     "lab": f_lab.result()[1]}
         f_bvh.result()
     build_s = time.time() - t0
-    smi = nvidia_smi_line()
+    smi = card_line()  # nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
     log(f"phase 0: built the trace kernels, the megakernel, the lab probes and the BVH builder "
         f"in {build_s:.1f} s")
     for line in nvcc_out["lab"].splitlines():
@@ -1733,11 +2042,10 @@ def main() -> int:
     for line in nvcc_out["trace"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas (trace): {line.strip()}")
-    spills = [line.strip() for line in nvcc_out["trace"].splitlines()
-              if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
+    trace_regs = trace_registers(nvcc_out["trace"])
     log(f"phase 0: K1/K2 (serial and cooperative drain in one kernel each, min_idle a "
-        f"launch argument, {ct.COOP_MIN_IDLE} on the main path): "
-        + ("no spills" if not spills else f"SPILLS: {spills}"))
+        f"launch argument, {ct.COOP_MIN_IDLE} on the main path), registers and bytes of spill "
+        f"stores: {trace_regs}")
     k3_ptxas = k3_registers(nvcc_out["megakernel"])
     for b, (regs, spill) in sorted(k3_ptxas.items()):
         log(f"phase 0: K3 instance B={b}: {regs} registers, {spill} bytes of spill stores "
@@ -1757,9 +2065,9 @@ def main() -> int:
     if n_faces != 36_876:
         raise AssertionError(f"stand-in scene has {n_faces} faces, expected 36876")
     spec = sampler_spec(static)
-    o, d, mint, maxt = random_rays(torch, N_RANDOM, dev)
-    rand = ct.pack_rays(o, d, mint, maxt)
-    rand_short = ct.pack_rays(o, d, mint, torch.full_like(maxt, 1.5))
+    rand = kernel_ablate.random_rays(N_RANDOM, dev)  # seeded with SEED (7)
+    rand_short = rand.clone()
+    rand_short[7] = 1.5
     _, cam = camera_rays(torch, scene, static, spec)
     frame = ct.pack_rays(cam.o, cam.d, cam.mint, cam.maxt)
     frame_short = ct.pack_rays(cam.o, cam.d, cam.mint, torch.full_like(cam.maxt, 3.0))
@@ -2215,6 +2523,27 @@ def main() -> int:
     measure = phase_measure(torch, D, smi, out_dir)
     log(f"phase 18: {time.time() - t_phase:.1f} s")
 
+    # ---- phase 19: BASELINE.json's configurations 1-5 -----------------------
+    t_phase = time.time()
+    baseline = phase_baseline(torch, smi, kernels, out_dir)
+    log(f"phase 19: {time.time() - t_phase:.1f} s")
+
+    # ---- phase 20: the megakernel route's cliff -----------------------------
+    t_phase = time.time()
+    cliff = phase_cliff(torch, smi, kernels, out_dir)
+    log(f"phase 20: {time.time() - t_phase:.1f} s")
+
+    # ---- phase 21: K1's split between node steps and leaves ----------------
+    t_phase = time.time()
+    ablate = phase_ablate(torch, smi, out_dir)
+    log(f"phase 21: {time.time() - t_phase:.1f} s")
+    original = ablate["rows"][ablate["original"]]
+    rows[0]["nofetch"] = {
+        "ms": original["nofetch_ms"], "default_ms": original["ms"], "rays": ablate["original"],
+        "launches": ablate["counts"]["K1 nofetch"],
+        "saving_ms_by_set": {k: r["nofetch_saving_ms"] for k, r in ablate["rows"].items()},
+    }
+
     mixed_run = passes["Mixed"]
     chosen = mixed_run["variants"][f"refill {mk.REFILL} B={mk.MIN_BLOCKS}"]
     rows.append({
@@ -2244,13 +2573,15 @@ def main() -> int:
     })
     rows.extend(lab_rows)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-        json.dump({"card": smi, "pass_ms": pass_ms, "rays_per_pass": nrays_stand_in,
+        json.dump({"card": smi, "trace_ptxas": trace_regs, "pass_ms": pass_ms,
+                   "rays_per_pass": nrays_stand_in,
                    "pass_ms_by_drain": pass_ab, "k3_ptxas": k3_ptxas,
                    "megakernel_passes": passes, "kernels": rows, "profiles": profiles,
                    "staged": staged, "pmj02bn": pmj, "integrators": integrators,
                    "textured": textured, "gradients": grads, "files": files,
                    "distributed": distributed, "lab": lab_out,
                    "measure": {k: measure[k] for k in ("rows", "glue")},
+                   "baseline": baseline, "cliff": cliff, "ablate": ablate,
                    "total_s": time.time() - t_start},
                   f, indent=1)
     log(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s")

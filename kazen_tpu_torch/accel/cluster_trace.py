@@ -52,6 +52,9 @@ K = 128  # triangles per cluster (BVH leaf size)
 SH_ROWS = 32  # shade attribute rows per cluster
 OUT_ROWS = 40
 ANY_ROWS = 8  # any-hit output rows: 0 blocked, 1 visits, 2 steps, 3 tests
+# the rows of OUT_ROWS that the nearest hit's nofetch instance writes (t,
+# face, winner cluster, visits, node steps, triangle tests)
+NOFETCH_ROWS = (0, 3, 33, 34, 35, 36)
 TRI_F = 12  # per-triangle record [p0 | e1 | e2 | blocks, 0, 0]
 NODE_F = 16  # per-node record [bmin3 bmax3 skip count cluster 0...]
 BIG = 3.0e38
@@ -439,11 +442,11 @@ def _leaf_tests(tables, rays, lanes, cid, count):
     return ok, t, rec
 
 
-def trace_walk_plain(tables: ClusterTables, rays: torch.Tensor) -> torch.Tensor:
-    """Nearest hit by the kernels' walk: rays (8, N) -> (40, N) rows, the
-    diagnostics (visits, node steps, triangle tests) in rows 34-36. A leaf
-    keeps the lexicographically least (t, k) below the lane's tbest, as the
-    kernel's strict '<' over k does."""
+def _nearest_walk(tables: ClusterTables, rays: torch.Tensor):
+    """The nearest-hit walk: per lane (tbest, winner cluster (-1: none),
+    winner k, visits, node steps, triangle tests). A leaf keeps the
+    lexicographically least (t, k) below the lane's tbest, as the kernel's
+    strict '<' over k does."""
     n = rays.shape[1]
     dev = rays.device
     tbest = torch.clamp(rays[7], max=BIG).clone()
@@ -462,11 +465,31 @@ def trace_walk_plain(tables: ClusterTables, rays: torch.Tensor) -> torch.Tensor:
         kbest[won] = k[better]
         return count, torch.zeros_like(better)
 
-    visits, steps, tests = _walk(tables, rays, tbest, leaf)
-    out = torch.zeros((OUT_ROWS, n), dtype=torch.float32, device=dev)
+    return (tbest, cbest, kbest, *_walk(tables, rays, tbest, leaf))
+
+
+def trace_walk_plain(tables: ClusterTables, rays: torch.Tensor) -> torch.Tensor:
+    """Nearest hit by the kernels' walk: rays (8, N) -> (40, N) rows, the
+    diagnostics (visits, node steps, triangle tests) in rows 34-36."""
+    _, cbest, kbest, visits, steps, tests = _nearest_walk(tables, rays)
+    out = torch.zeros((OUT_ROWS, rays.shape[1]), dtype=torch.float32, device=rays.device)
     _winner_rows(out, tables, rays[0:3].T, rays[3:6].T, cbest >= 0, cbest, kbest)
     out[34:37] = torch.stack([visits, steps, tests]).to(torch.float32)
     return out
+
+
+def trace_nofetch_plain(tables: ClusterTables, rays: torch.Tensor) -> torch.Tensor:
+    """The nofetch instance's plain version: rays (8, N) -> (6, N), the rows
+    NOFETCH_ROWS of ``trace_walk_plain`` (t, face, cluster, visits, node
+    steps, triangle tests) without the winner's attribute rows: t is the
+    walk's own, face the one value read of the winner's attributes."""
+    tbest, cbest, kbest, visits, steps, tests = _nearest_walk(tables, rays)
+    face = torch.where(cbest >= 0, tables.geo_shade[cbest.clamp(min=0), _S_FACE, kbest], -1.0)
+    valid = face >= 0.0
+    return torch.stack([
+        torch.where(valid, tbest, BIG), face, torch.where(valid, cbest.to(torch.float32), 0.0),
+        visits.to(torch.float32), steps.to(torch.float32), tests.to(torch.float32),
+    ])
 
 
 def occluded_walk_plain(tables: ClusterTables, rays: torch.Tensor) -> torch.Tensor:
@@ -513,6 +536,8 @@ def _library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.kz_trace_nearest.argtypes = [p, p, i, p, p, p, i, i, p]
     lib.kz_trace_nearest.restype = i
+    lib.kz_trace_nearest_nofetch.argtypes = [p, p, i, p, p, p, i, i, p]
+    lib.kz_trace_nearest_nofetch.restype = i
     lib.kz_trace_any_hit.argtypes = [p, p, i, p, p, i, i, p]
     lib.kz_trace_any_hit.restype = i
     lib.kz_error_string.argtypes = [i]
@@ -524,6 +549,11 @@ def _library() -> ctypes.CDLL:
 # nearest hit with any_hit=False and the any hit with any_hit=True
 NEAREST = CudaKernel("cluster_trace_nearest", "kazen_tpu/accel/cluster_trace.py:696")
 ANY_HIT = CudaKernel("cluster_trace_any_hit", "kazen_tpu/accel/cluster_trace.py:696")
+# the nearest hit's lab instance without the winner's attribute fetch (the
+# counterpart of KAZEN_TRACE_ABLATE=nofetch, kazen_tpu/accel/cluster_trace.py:514);
+# only lab/kernel_ablate.py launches it
+NEAREST_NOFETCH = CudaKernel("cluster_trace_nearest_nofetch",
+                             "kazen_tpu/accel/cluster_trace.py:696")
 
 # A drain round of the kernels runs cooperatively (the warp tests one pending
 # lane's cluster at a time) when at least this many of the warp's 32 lanes
@@ -561,28 +591,39 @@ def _raise_on(code: int, kernel: CudaKernel) -> None:
         raise RuntimeError(f"{kernel.name} launch failed: {msg} ({code})")
 
 
+def _launch_nearest(tables, rays, min_idle, rows, entry, kernel) -> torch.Tensor:
+    _check_inputs(tables, rays)
+    n = rays.shape[1]
+    out = torch.empty((rows, n), dtype=torch.float32, device=rays.device)
+    if n == 0:
+        return out
+    n_nodes = tables.node_scalars.shape[1]
+    with torch.cuda.device(rays.device):
+        stream = torch.cuda.current_stream(rays.device).cuda_stream
+        code = getattr(_library(), entry)(
+            rays.data_ptr(), tables.node_scalars.data_ptr(), n_nodes,
+            tables.tri.data_ptr(), tables.geo_shade.data_ptr(), out.data_ptr(),
+            n, min_idle, stream,
+        )
+    kernel.launches += 1
+    _raise_on(code, kernel)
+    return out
+
+
 def trace_cuda(tables: ClusterTables, rays: torch.Tensor,
                min_idle: int = COOP_MIN_IDLE) -> torch.Tensor:
     """Nearest-hit kernel: rays (8, N) on a CUDA device -> (40, N) rows.
     ``min_idle`` is the kernel's drain threshold (``COOP_MIN_IDLE``); the
     rows do not depend on it."""
-    _check_inputs(tables, rays)
-    n = rays.shape[1]
-    out = torch.empty((OUT_ROWS, n), dtype=torch.float32, device=rays.device)
-    if n == 0:
-        return out
-    lib = _library()
-    n_nodes = tables.node_scalars.shape[1]
-    with torch.cuda.device(rays.device):
-        stream = torch.cuda.current_stream(rays.device).cuda_stream
-        code = lib.kz_trace_nearest(
-            rays.data_ptr(), tables.node_scalars.data_ptr(), n_nodes,
-            tables.tri.data_ptr(), tables.geo_shade.data_ptr(), out.data_ptr(),
-            n, min_idle, stream,
-        )
-    NEAREST.launches += 1
-    _raise_on(code, NEAREST)
-    return out
+    return _launch_nearest(tables, rays, min_idle, OUT_ROWS, "kz_trace_nearest", NEAREST)
+
+
+def trace_nofetch_cuda(tables: ClusterTables, rays: torch.Tensor,
+                       min_idle: int = COOP_MIN_IDLE) -> torch.Tensor:
+    """The nearest-hit kernel's nofetch instance: rays (8, N) on a CUDA
+    device -> (6, N), rows NOFETCH_ROWS of ``trace_cuda``'s output."""
+    return _launch_nearest(tables, rays, min_idle, len(NOFETCH_ROWS),
+                           "kz_trace_nearest_nofetch", NEAREST_NOFETCH)
 
 
 def occluded_cuda(tables: ClusterTables, rays: torch.Tensor,

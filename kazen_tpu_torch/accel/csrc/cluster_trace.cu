@@ -63,6 +63,16 @@
 // lever left for the walk itself. Rows 34-36 (any hit: 1-3) count visits,
 // node steps and triangle tests per ray, the data for the kernel's
 // operation bound and for the SIMT efficiency of its warps.
+//
+// `nearest_kernel<FETCH>`: FETCH = true is the nearest hit above (behind
+// kz_trace_nearest). FETCH = false (kz_trace_nearest_nofetch, a lab
+// instance that render() never reaches) runs the same walk and drain but
+// skips the winner's attribute read, its recompute and the 40-row write: it
+// reads one value (the face id) and writes six rows, which equal the default
+// instance's rows 0 (t), 3 (face), 33 (cluster) and 34-36 on every lane. The
+// walk's t is the recompute's t: both are mt_test's operations on the same
+// f32 inputs. Its time beside the default's prices the end-of-walk fetch
+// (lab/kernel_ablate.py, the counterpart of KAZEN_TRACE_ABLATE=nofetch).
 #include <cuda_runtime.h>
 
 namespace {
@@ -347,6 +357,7 @@ __device__ __forceinline__ void coop_any(const float* __restrict__ tri, int L,
   }
 }
 
+template <bool FETCH>
 __global__ void __launch_bounds__(THREADS)
     nearest_kernel(const float* __restrict__ rays,
                    const float* __restrict__ nodes, int n_nodes,
@@ -384,6 +395,23 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
   if (!active) return;
+
+  if constexpr (!FETCH) {
+    // rows 0, 3, 33, 34-36 of the default instance, as (6, n)
+    const float* col =
+        shade + ((size_t)max(cbest, 0) * SH_ROWS + S_FACE) * K + kbest;
+    const float face = cbest >= 0 ? __ldg(col) : -1.0f;
+    const bool valid = face >= 0.0f;
+    float* o = out + i;
+    const size_t st = (size_t)n;
+    o[0 * st] = valid ? tbest : BIG;
+    o[1 * st] = face;
+    o[2 * st] = valid ? (float)cbest : 0.0f;
+    o[3 * st] = (float)visits;
+    o[4 * st] = (float)steps;
+    o[5 * st] = (float)tests;
+    return;
+  }
 
   // winner attributes (or the miss sentinel: face = light = -1 and a benign
   // unit triangle in rows 3, 7, 11, 14, 17)
@@ -493,7 +521,20 @@ int kz_trace_nearest(const float* rays, const float* nodes, int n_nodes,
                      const float* tri, const float* shade, float* out, int n,
                      int min_idle, cudaStream_t stream) {
   if (n <= 0) return 0;
-  nearest_kernel<<<blocks_for(n), THREADS, 0, stream>>>(
+  nearest_kernel<true><<<blocks_for(n), THREADS, 0, stream>>>(
+      rays, nodes, n_nodes, tri, shade, out, n, min_idle);
+  return (int)cudaGetLastError();
+}
+
+// The lab instance without the winner's attribute fetch: out (6, n) holds
+// the default's rows 0 (t), 3 (face), 33 (cluster), 34-36 (visits, node
+// steps, triangle tests).
+int kz_trace_nearest_nofetch(const float* rays, const float* nodes,
+                             int n_nodes, const float* tri, const float* shade,
+                             float* out, int n, int min_idle,
+                             cudaStream_t stream) {
+  if (n <= 0) return 0;
+  nearest_kernel<false><<<blocks_for(n), THREADS, 0, stream>>>(
       rays, nodes, n_nodes, tri, shade, out, n, min_idle);
   return (int)cudaGetLastError();
 }

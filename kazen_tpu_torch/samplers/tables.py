@@ -173,16 +173,19 @@ def load_tables(generate: bool = True):
     return pmj, bn
 
 
-def make_pmj02bn_spec(sample_count: int, seed: int = 1, device="cpu"):
-    """The pmj02bn SamplerSpec with its tables on ``device``, replicating
+def make_pmj02bn_spec(sample_count: int, seed: int = 1, device="cuda"):
+    """The pmj02bn SamplerSpec with its tables on ``device`` (the card unless
+    the caller asks for the CPU), replicating
     the sampler's constructor bucketing (sampler.cpp:273-345). The point
     table is computed in float64 and rounded once to float32, and the
     blue-noise table divided by 65535 in float32, as the reference does:
     either step done otherwise moves the last bit of some draws."""
     import torch
 
+    from ..core.device import resolve_device
     from .streams import SamplerSpec
 
+    device = resolve_device(device)
     pmj_u32, bn_u16 = load_tables()
     n = min(sample_count, N_PMJ_SAMPLES)
     n_eff = SamplerSpec(kind="pmj02bn", sample_count=n, seed=seed).effective_sample_count
@@ -206,7 +209,7 @@ def make_pmj02bn_spec(sample_count: int, seed: int = 1, device="cpu"):
         n_stored[off] += 1
 
     def dev(a):
-        return torch.as_tensor(a, device=torch.device(device))
+        return torch.as_tensor(a, device=device)
 
     return SamplerSpec(
         kind="pmj02bn",

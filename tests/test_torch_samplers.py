@@ -26,7 +26,8 @@ def test_table_file_is_the_references():
 @pytest.fixture(scope="module")
 def specs():
     return {
-        spp: (tables_j.make_pmj02bn_spec(spp, seed=3), tables_t.make_pmj02bn_spec(spp, seed=3))
+        spp: (tables_j.make_pmj02bn_spec(spp, seed=3),
+              tables_t.make_pmj02bn_spec(spp, seed=3, device="cpu"))
         for spp in (1, 4, 16, 64)
     }
 
