@@ -1,0 +1,47 @@
+"""Camera ray generation (camera.cpp:70-91, the perspective camera),
+batched over samples. Points go through the homogeneous transform with the
+perspective divide (transform.h:58-62); directions use the rotation part.
+A frozen copy of the port's ``integrate/camera.py``, without the thin
+lens."""
+from __future__ import annotations
+
+import torch
+
+from ..accel.intersect import Rays
+from ..core import math as km
+
+
+def _xform_point(m, p):
+    """(..., 3) points through the 4x4 ``m``, written out elementwise so
+    no matrix product (and no TF32 on the card) is involved."""
+    r = (p[..., None, :] * m[:3, :3]).sum(-1) + m[:3, 3]
+    w = (p * m[3, :3]).sum(-1) + m[3, 3]
+    return r / w[..., None]
+
+
+def _xform_vector(m, v):
+    return (v[..., None, :] * m[:3, :3]).sum(-1)
+
+
+def sample_ray(scene, static, pixel_sample, aperture_sample) -> Rays:
+    """World-space camera rays; the importance weight is 1 (camera.cpp:92).
+    ``aperture_sample`` is drawn, as the program draws it, and unused."""
+    inv_size = torch.tensor(
+        [1.0 / static.width, 1.0 / static.height],
+        dtype=torch.float32, device=pixel_sample.device,
+    )
+    p_sample = pixel_sample * inv_size
+    near_p = _xform_point(
+        scene.sample_to_camera,
+        torch.cat([p_sample, torch.zeros_like(p_sample[..., :1])], -1),
+    )
+    d_local = km.normalize(near_p)
+    o_local = torch.zeros_like(near_p)
+
+    inv_z = 1.0 / d_local[..., 2]
+    return Rays(
+        o=_xform_point(scene.cam_to_world, o_local),
+        d=_xform_vector(scene.cam_to_world, d_local),
+        mint=scene.cam_near * inv_z,
+        maxt=scene.cam_far * inv_z,
+    )

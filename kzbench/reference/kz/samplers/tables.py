@@ -1,0 +1,137 @@
+"""Sample tables for the pmj02bn sampler.
+
+A frozen copy of the port's ``samplers/tables.py``. The pmj02 point sets
+are Owen-scrambled Sobol (0,2)-sequences, generated here in numpy as the
+port generated its table file (they preserve the (0,2)-net properties that
+the pixel-tile bucketing, sampler.cpp:289-315, relies on). The blue-noise
+ranks (void-and-cluster, 48 tables of 128^2) take minutes of numpy to
+generate, so ``_bluenoise.npz`` beside this file holds the port's table as
+data.
+"""
+from __future__ import annotations
+
+import os
+from typing import Tuple
+
+import numpy as np
+
+N_PMJ_SETS = 5
+N_PMJ_SAMPLES = 65536
+N_BLUENOISE = 48
+BLUENOISE_RES = 128
+
+_BLUENOISE = os.path.join(os.path.dirname(__file__), "_bluenoise.npz")
+
+
+def _reverse_bits32(x: np.ndarray) -> np.ndarray:
+    x = ((x >> 16) | (x << 16)) & 0xFFFFFFFF
+    x = ((x & 0x00FF00FF) << 8) | ((x >> 8) & 0x00FF00FF)
+    x = ((x & 0x0F0F0F0F) << 4) | ((x >> 4) & 0x0F0F0F0F)
+    x = ((x & 0x33333333) << 2) | ((x >> 2) & 0x33333333)
+    x = ((x & 0x55555555) << 1) | ((x >> 1) & 0x55555555)
+    return x
+
+
+def _owen_scramble(x: np.ndarray, seed: int) -> np.ndarray:
+    """Hash-based nested uniform (Owen) scramble, Laine-Karras style."""
+    x = _reverse_bits32(x.astype(np.uint64)).astype(np.uint64)
+    M = np.uint64(0xFFFFFFFF)
+    s = np.uint64(seed & 0xFFFFFFFF)
+    x = (x + s) & M
+    x = (x ^ (x * np.uint64(0x6C50B47C))) & M
+    x = (x ^ (x * np.uint64(0xB82F1E52))) & M
+    x = (x ^ (x * np.uint64(0xC7AFE638))) & M
+    x = (x ^ (x * np.uint64(0x8D22F6E6))) & M
+    return _reverse_bits32(x.astype(np.uint32))
+
+
+def _sobol_2d(n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """First two Sobol dimensions as uint32 (unscrambled)."""
+    idx = np.arange(n, dtype=np.uint32)
+    # dim 0: bit-reversed van der Corput
+    d0 = _reverse_bits32(idx)
+    # dim 1: Pascal/Sierpinski generator matrix -- m_k's bit j is
+    # binom(k, j) mod 2, i.e. set iff j is a submask of k (Lucas), giving
+    # the classic direction numbers 1, 3, 5, 15, 17, 51, 85, 255, ...
+    m = []
+    for k in range(32):
+        mk = 0
+        for j in range(k + 1):
+            if (j & ~k) == 0:
+                mk |= 1 << j
+        m.append(mk)
+    v = np.array(
+        [(m[k] << (31 - k)) & 0xFFFFFFFF for k in range(32)], dtype=np.uint32
+    )
+    d1 = np.zeros(n, dtype=np.uint32)
+    for k in range(32):
+        bit = (idx >> k) & 1
+        d1 ^= np.where(bit.astype(bool), v[k], 0).astype(np.uint32)
+    return d0, d1
+
+
+def generate_pmj02_tables(
+    n_sets: int = N_PMJ_SETS, n: int = N_PMJ_SAMPLES, seed: int = 0
+) -> np.ndarray:
+    """(n_sets, n, 2) uint32 fixed-point tables (value * 2^-32 in [0,1))."""
+    d0, d1 = _sobol_2d(n)
+    out = np.zeros((n_sets, n, 2), np.uint32)
+    rng = np.random.default_rng(seed)
+    for s in range(n_sets):
+        s0, s1 = rng.integers(0, 1 << 32, size=2, dtype=np.uint32)
+        out[s, :, 0] = _owen_scramble(d0, int(s0))
+        out[s, :, 1] = _owen_scramble(d1, int(s1))
+    return out
+
+
+def load_tables():
+    """Returns (pmj02 (5,65536,2) uint32, bluenoise (48,128,128) uint16)."""
+    return generate_pmj02_tables(), np.load(_BLUENOISE)["bluenoise"]
+
+
+def make_pmj02bn_spec(sample_count: int, seed: int = 1, device="cuda"):
+    """The pmj02bn SamplerSpec with its tables on ``device`` (the card unless
+    the caller asks for the CPU), replicating
+    the sampler's constructor bucketing (sampler.cpp:273-345). The point
+    table is computed in float64 and rounded once to float32, and the
+    blue-noise table divided by 65535 in float32, as the reference does:
+    either step done otherwise moves the last bit of some draws."""
+    import torch
+
+    from ..core.device import resolve_device
+    from .streams import SamplerSpec
+
+    device = resolve_device(device)
+    pmj_u32, bn_u16 = load_tables()
+    n = min(sample_count, N_PMJ_SAMPLES)
+    n_eff = SamplerSpec(kind="pmj02bn", sample_count=n, seed=seed).effective_sample_count
+
+    def log4i(v):
+        return (v.bit_length() - 1) // 2
+
+    def round_up_pow4(v):
+        return v if v == 4 ** log4i(v) else 1 << (2 * (1 + log4i(v)))
+
+    tile = 1 << (log4i(N_PMJ_SAMPLES) - log4i(round_up_pow4(n_eff)))
+    pix = np.zeros((tile * tile * n_eff, 2), np.float32)
+    n_stored = np.zeros(tile * tile, np.int32)
+    pts = pmj_u32[0].astype(np.float64) * 2.0**-32
+    for i in range(N_PMJ_SAMPLES):
+        p = pts[i] * tile
+        off = int(p[0]) + int(p[1]) * tile
+        if n_stored[off] == n_eff:
+            continue
+        pix[off * n_eff + n_stored[off]] = p - np.floor(p)
+        n_stored[off] += 1
+
+    def dev(a):
+        return torch.as_tensor(a, device=device)
+
+    return SamplerSpec(
+        kind="pmj02bn",
+        sample_count=n,
+        seed=seed,
+        pmj_tables=dev((pmj_u32.astype(np.float64) * 2.0**-32).astype(np.float32)),
+        bluenoise=dev(bn_u16.astype(np.float32) / np.float32(65535.0)),
+        pmj_pixel_table=(dev(pix), tile),
+    )
