@@ -45,6 +45,7 @@ import torch
 
 from .. import cuda_build
 from ..cuda_build import CudaKernel
+from ..utils import metrics
 from .bvh import build_bvh
 from .intersect import moller_trumbore, moller_trumbore_edges
 
@@ -656,15 +657,14 @@ def occluded_cuda(tables: ClusterTables, rays: torch.Tensor,
 def pack_rays(o, d, mint, maxt) -> torch.Tensor:
     """(8, N) float32 [o3, d3, mint, maxt]."""
     n = o.shape[0]
-    return torch.cat(
-        [
-            o.T.to(torch.float32),
-            d.T.to(torch.float32),
-            torch.as_tensor(mint, dtype=torch.float32, device=o.device).expand(n)[None],
-            torch.as_tensor(maxt, dtype=torch.float32, device=o.device).expand(n)[None],
-        ],
-        dim=0,
-    ).contiguous()
+    ot, dt = o.T.to(torch.float32), d.T.to(torch.float32)
+    with metrics.sync("accel/cluster_trace.py:pack_rays as_tensor(mint)",
+                      not isinstance(mint, torch.Tensor)):
+        mint = torch.as_tensor(mint, dtype=torch.float32, device=o.device)
+    with metrics.sync("accel/cluster_trace.py:pack_rays as_tensor(maxt)",
+                      not isinstance(maxt, torch.Tensor)):
+        maxt = torch.as_tensor(maxt, dtype=torch.float32, device=o.device)
+    return torch.cat([ot, dt, mint.expand(n)[None], maxt.expand(n)[None]], dim=0).contiguous()
 
 
 def trace_rays(tables: ClusterTables, rays: torch.Tensor) -> torch.Tensor:
@@ -683,11 +683,13 @@ def occluded_rays(tables: ClusterTables, rays: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unsupported device {rays.device}")
 
 
+@metrics.traced("trace.nearest")
 def trace(tables: ClusterTables, o, d, mint, maxt) -> torch.Tensor:
     """Nearest hit + the winner's shading attributes: (40, N) rows."""
     return trace_rays(tables, pack_rays(o, d, mint, maxt))
 
 
+@metrics.traced("trace.any_hit")
 def occluded(tables: ClusterTables, o, d, mint, maxt) -> torch.Tensor:
     """Any-hit shadow query ignoring primary-invisible light faces: (N,) bool."""
     return occluded_rays(tables, pack_rays(o, d, mint, maxt))[0] > 0.0

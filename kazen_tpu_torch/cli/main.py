@@ -7,6 +7,9 @@ otherwise) takes the place of the reference's ``--platform``.
 process group (dist/sharding.py:render_distributed): the group already
 initialized, one from torchrun's environment, or else one of this process
 alone; rank 0 writes the image.
+
+``--trace FILE`` switches the program's tracer on (``utils/metrics.py``)
+and writes its spans and counters as a Chrome trace (rank 0).
 """
 from __future__ import annotations
 
@@ -29,14 +32,21 @@ def main(argv=None):
         action="store_true",
         help="shard pixel lanes over the processes of a torch.distributed group",
     )
+    ap.add_argument(
+        "--trace", default=None, metavar="FILE",
+        help="write the program's spans and counters as a Chrome trace (JSON)",
+    )
     args = ap.parse_args(argv)
 
     from ..core.device import resolve_device
     from ..film import io as img_io
     from ..scene.compiler import compile_scene
     from ..scene.xml_io import load_xml
+    from ..utils import metrics
 
     device = resolve_device(args.device)
+    if args.trace:
+        metrics.tracing(True)
     t0 = time.time()
     scene = load_xml(args.scene)
     arrays, static = compile_scene(scene, device=device)
@@ -73,6 +83,11 @@ def main(argv=None):
         img = render(arrays, static, spp=args.spp, device=device)
     img = img.cpu()
     dt = time.time() - t0
+    if args.trace:
+        metrics.tracing(False)
+        collected = metrics.collect()
+        if rank == 0:
+            metrics.write_chrome_trace(args.trace, collected)
     spp = args.spp or static.sample_count
     mps = static.width * static.height * spp / dt
     print(

@@ -21,6 +21,8 @@ from typing import Tuple
 
 import torch
 
+from ..utils import metrics
+
 M32 = 0xFFFFFFFF
 _MASK64 = (1 << 64) - 1
 PCG32_MULT = 0x5851F42D4C957F2D
@@ -200,17 +202,24 @@ def _permute_hash_round(i, w, p):
     return i
 
 
+def _all_accepted(ok: torch.Tensor) -> bool:
+    """The host's read of whether every lane of ``permute`` is accepted."""
+    with metrics.sync("core/rng.py:permute ok.all()"):
+        return bool(ok.all())
+
+
 def permute(i: torch.Tensor, l, p: torch.Tensor) -> torch.Tensor:
     """Cycle-walking hash permutation of [0, l); ``l`` an int or a tensor."""
     i, p = torch.broadcast_tensors(i, p)
-    l = torch.as_tensor(l, dtype=torch.int64, device=i.device)
+    with metrics.sync("core/rng.py:permute as_tensor(l)", not isinstance(l, torch.Tensor)):
+        l = torch.as_tensor(l, dtype=torch.int64, device=i.device)
     w = l - 1
     for s in (1, 2, 4, 8, 16):
         w = w | (w >> s)
     # do-while: one round for every lane, then walk rejected lanes on
     cur = _permute_hash_round(i, w, p)
     ok = cur < l
-    while not bool(ok.all()):
+    while not _all_accepted(ok):
         nxt = _permute_hash_round(cur, w, p)
         cur = torch.where(ok, cur, nxt)
         ok = ok | (nxt < l)

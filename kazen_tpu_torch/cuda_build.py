@@ -5,7 +5,8 @@ shared library with a plain C interface, loaded with ctypes. The library is
 named by a hash of the source and the flags and lives in the build
 directory, so a source is compiled once per change. Every kernel wrapper
 keeps a ``CudaKernel`` whose ``launches`` it raises by one each time it
-launches its kernel.
+launches its kernel; ``KERNELS`` lists them all (``utils.metrics.collect``
+reads their counts).
 """
 from __future__ import annotations
 
@@ -16,8 +17,10 @@ import subprocess
 from typing import Sequence, Tuple
 
 from .build_dir import build_dir
+from .utils import metrics
 
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+KERNELS = []  # every CudaKernel made
 
 
 def nvcc() -> str:
@@ -42,9 +45,10 @@ def build_library(source: str, stem: str, flags: Sequence[str] = ()) -> Tuple[st
     if os.path.exists(lib):
         return lib, ""
     tmp = f"{lib}.{os.getpid()}.tmp"
-    res = subprocess.run(
-        [nvcc(), *cmd, "-o", tmp, source], capture_output=True, text=True
-    )
+    with metrics.span("cuda_build", "stem", stem):
+        res = subprocess.run(
+            [nvcc(), *cmd, "-o", tmp, source], capture_output=True, text=True
+        )
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source}:\n{res.stdout}\n{res.stderr}")
     os.replace(tmp, lib)
@@ -59,3 +63,4 @@ class CudaKernel:
         self.name = name
         self.replaces = replaces
         self.launches = 0
+        KERNELS.append(self)

@@ -30,6 +30,7 @@ import torch
 from ..core import rng
 from ..film import film as film_mod
 from ..integrate.render import _render_pass, pixel_grid, sampler_spec
+from ..utils import metrics
 
 PARAM_KEYS = ("materials", "texels", "light_radiance", "bg_color")
 
@@ -179,22 +180,30 @@ def optimize(
     static = wavefront_static(static)
     if spec is None:
         spec = sampler_spec(static, arrays.device)
-    target = torch.as_tensor(target, dtype=torch.float32, device=arrays.device)
+    with metrics.sync("diff/inverse.py:optimize as_tensor(target)",
+                      not isinstance(target, torch.Tensor) or target.device != arrays.device):
+        target = torch.as_tensor(target, dtype=torch.float32, device=arrays.device)
     params = as_leaves(get_params(arrays, param_keys))
     opt = torch.optim.Adam(leaves(params), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
     losses = []
     n_stream = spec.effective_sample_count
     for it in range(steps):
-        opt.zero_grad(set_to_none=True)
-        img = render_image(arrays, static, spec, params, step_samples(it, spp_per_step, n_stream))
-        loss = image_loss(img, target)
-        loss.backward()
-        opt.step()
-        if clip_to_unit:
-            clip_params(params)
-        losses.append(float(loss.detach()))
-        if callback is not None:
-            callback(it, losses[-1], params)
+        with metrics.span("optimize.step", "step", it):
+            with metrics.span("forward"):
+                opt.zero_grad(set_to_none=True)
+                img = render_image(arrays, static, spec, params,
+                                   step_samples(it, spp_per_step, n_stream))
+                loss = image_loss(img, target)
+            with metrics.span("backward"):
+                loss.backward()
+            with metrics.span("optimizer"):
+                opt.step()
+                if clip_to_unit:
+                    clip_params(params)
+            with metrics.sync("diff/inverse.py:optimize float(loss)"):
+                losses.append(float(loss.detach()))
+            if callback is not None:
+                callback(it, losses[-1], params)
     final = {
         k: ({f: t.detach() for f, t in v.items()} if isinstance(v, dict) else v.detach())
         for k, v in params.items()

@@ -271,7 +271,8 @@ def run_config(n, spp=None, device="cuda", verbose=True) -> dict:
         "clusters": scene.trace_tables.num_clusters, "megakernel": static.use_megakernel,
         "compile_s": compile_s, "spec_ms": spec_ms, "render_s": render_ms / 1e3,
         "ms_per_pass": render_ms / passes,
-        # each pass's host seconds as RenderMetrics took them (a sync ends each)
+        # each pass's seconds as RenderMetrics took them: device-clock time
+        # between the pass's CUDA events on the card (no sync in the call)
         "pass_ms_min": pass_ms[0], "pass_ms_median": pass_ms[len(pass_ms) // 2],
         "pass_ms_max": pass_ms[-1],
         "rays_per_pass": summary["rays"] / passes,

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..core import math as km
+from ..utils import metrics
 
 
 def filter_radius(static) -> float:
@@ -67,6 +68,7 @@ def make_film(static, device) -> torch.Tensor:
     return torch.zeros((static.height, static.width, 4), device=device)
 
 
+@metrics.traced("splat")
 def splat(static, film, pixel_sample, value) -> torch.Tensor:
     """Accumulate one batch of samples at continuous image positions
     (block.cpp:56-85) into ``film`` (updated in place and returned).
@@ -129,6 +131,7 @@ def _splat_rows(static, out, row0: int, jitter, value) -> None:
             _add_shifted(out, contrib * (wx * wy)[..., None], row0 + dy, dx)
 
 
+@metrics.traced("splat")
 def splat_grid(static, film, jitter, value) -> torch.Tensor:
     """Accumulate one sample per pixel into ``film`` (updated in place and
     returned). jitter: (N, 2) sub-pixel positions in [0,1); value: (N, 3)."""

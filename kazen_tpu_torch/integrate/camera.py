@@ -9,6 +9,7 @@ import torch
 from ..accel.intersect import Rays
 from ..core import math as km
 from ..core import warp
+from ..utils import metrics
 
 
 def _xform_point(m, p):
@@ -23,13 +24,15 @@ def _xform_vector(m, v):
     return (v[..., None, :] * m[:3, :3]).sum(-1)
 
 
+@metrics.traced("camera")
 def sample_ray(scene, static, pixel_sample, aperture_sample) -> Rays:
     """World-space camera rays; the importance weight is 1 for both camera
     models (camera.cpp:92, :227)."""
-    inv_size = torch.tensor(
-        [1.0 / static.width, 1.0 / static.height],
-        dtype=torch.float32, device=pixel_sample.device,
-    )
+    with metrics.sync("integrate/camera.py:sample_ray torch.tensor"):
+        inv_size = torch.tensor(
+            [1.0 / static.width, 1.0 / static.height],
+            dtype=torch.float32, device=pixel_sample.device,
+        )
     p_sample = pixel_sample * inv_size
     near_p = _xform_point(
         scene.sample_to_camera,

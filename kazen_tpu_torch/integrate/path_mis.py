@@ -39,6 +39,7 @@ from ..samplers import streams
 from ..shade import bsdf as bsdf_mod
 from ..shade import lights as lights_mod
 from ..shade.interaction import Interaction, prepare_from_rows
+from ..utils import metrics
 
 EPSILON = 1e-4  # Ray3f default mint (define.h)
 INF = 3.0e38
@@ -197,6 +198,7 @@ def _light_pdf_at_hit(scene, its: Interaction, ray_o):
     return lights_mod.pdf_area_light(scene, lidx, its.sh_frame.n, wi, dist)
 
 
+@metrics.traced("shading")
 def _shade_prologue(scene, static, st: _OState):
     """Bookkeeping for the trace that produced ``st.rows``
     (integrator.cpp:312-331): miss -> background (MIS-weighted against the
@@ -212,6 +214,7 @@ def _shade_prologue(scene, static, st: _OState):
     return li, st.alive & valid
 
 
+@metrics.traced("permute")
 def packet_key(pick, cluster, d, alive, smaxt):
     """The shared packet order's sort key: picked light | path-direction
     octant | hit cluster | direction Morton. Lanes whose path ray continues
@@ -228,6 +231,7 @@ def packet_key(pick, cluster, d, alive, smaxt):
     return torch.where(alive | (smaxt >= 0.0), key, _SENTINEL)
 
 
+@metrics.traced("permute")
 def _packet_permute(key, columns, stream, lane):
     """The ordered permute: a stable argsort of ``key``, then one (N, 24)
     gather of the lane state's float ``columns`` and one (N, 7) gather of its
@@ -454,5 +458,6 @@ def li_wavefront(scene, static, spec, stream, rays: Rays):
     """Integrator::Li over a lane batch: (stream, li (N, 3), rays traced)."""
     st = wavefront_init(scene, static, spec, stream, rays)
     for depth in range(static.max_depth):
-        st = _bounce_ordered(scene, static, spec, st, draw_rr=depth >= 3)
+        with metrics.span("shading", "depth", depth):
+            st = _bounce_ordered(scene, static, spec, st, draw_rr=depth >= 3)
     return wavefront_finish(scene, static, st)

@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..core import rng
+from ..utils import metrics
 
 KINDS = ("independent", "stratified", "correlated", "pmj02bn")
 ONE_MINUS_EPSILON = float.fromhex("0x1.fffffep-1")
@@ -92,6 +93,7 @@ def init_stream(spec: SamplerSpec, px, py, sample_index: int) -> StreamState:
     )
 
 
+@metrics.traced("sampler.draw")
 def init_stream_jump(spec: SamplerSpec, px, py, sample_index, jump) -> StreamState:
     """init_stream with the jump constants (A, S) of
     ``rng.advance_constants(sample_index * 65536)`` computed by the caller.
@@ -127,6 +129,7 @@ def _hash32_dim(spec: SamplerSpec, st: StreamState):
     return rng.hash_pixel_dim_seed(st.px, st.py, st.dim, spec.seed) & rng.M32
 
 
+@metrics.traced("sampler.draw")
 def next_1d(spec: SamplerSpec, st: StreamState):
     n = spec.effective_sample_count
     if spec.kind == "independent":
@@ -146,6 +149,7 @@ def next_1d(spec: SamplerSpec, st: StreamState):
     return st._replace(dim=st.dim + 1), u
 
 
+@metrics.traced("sampler.draw")
 def next_2d(spec: SamplerSpec, st: StreamState):
     n = spec.effective_sample_count
     if spec.kind == "independent":
@@ -188,6 +192,7 @@ def next_2d(spec: SamplerSpec, st: StreamState):
     return st._replace(dim=st.dim + 2), u
 
 
+@metrics.traced("sampler.draw")
 def next_pixel_2d(spec: SamplerSpec, st: StreamState):
     """nextPixel2D: the sub-pixel jitter draw. pmj02bn reads its pixel-tile
     table and consumes no dimension (sampler.cpp:373-377); every other kind

@@ -183,6 +183,7 @@ def make_pmj02bn_spec(sample_count: int, seed: int = 1, device="cuda"):
     import torch
 
     from ..core.device import resolve_device
+    from ..utils import metrics
     from .streams import SamplerSpec
 
     device = resolve_device(device)
@@ -209,7 +210,8 @@ def make_pmj02bn_spec(sample_count: int, seed: int = 1, device="cuda"):
         n_stored[off] += 1
 
     def dev(a):
-        return torch.as_tensor(a, device=device)
+        with metrics.sync("samplers/tables.py:make_pmj02bn_spec as_tensor"):
+            return torch.as_tensor(a, device=device)
 
     return SamplerSpec(
         kind="pmj02bn",

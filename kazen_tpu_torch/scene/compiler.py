@@ -34,6 +34,7 @@ import torch
 from ..accel import cluster_trace as ct
 from ..core.device import resolve_device
 from ..samplers.streams import KINDS as SAMPLER_KINDS
+from ..utils import metrics
 from . import description as D
 
 # Material type ids (shade/bsdf.py dispatches on these); the numbering is
@@ -826,6 +827,7 @@ def _with_megakernel(scene: SceneArrays, static: SceneStatic, megakernel):
     )
 
 
+@metrics.traced("compile_scene")
 def compile_scene(
     scene: D.Scene, device="cuda", megakernel: Optional[bool] = None,
 ) -> "tuple[SceneArrays, SceneStatic]":

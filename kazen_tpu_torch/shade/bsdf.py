@@ -36,6 +36,7 @@ from ..scene.compiler import (
     BSDF_ROUGHPLASTIC,
     MaterialTable,
 )
+from ..utils import metrics
 from . import ggx
 from .textures import eval_texture
 
@@ -665,10 +666,9 @@ def make_ctx(static, scene, mat_id, uv, sh_frame, wi, dpdu=None, lod=None,
         raise ValueError("a scene with a normal map needs the hits' dpdu")
     is_nm = mp.btype == BSDF_NORMALMAP
     mp_eff = scene.materials.rows(torch.where(is_nm, mp.nested, mat_id))
-    rgb = eval_texture(
-        static, tex, mp.tex_normal, uv,
-        torch.tensor([0.5, 0.5, 1.0], dtype=wi.dtype, device=wi.device).expand_as(wi),
-    )
+    with metrics.sync("shade/bsdf.py:make_ctx torch.tensor"):
+        flat = torch.tensor([0.5, 0.5, 1.0], dtype=wi.dtype, device=wi.device)
+    rgb = eval_texture(static, tex, mp.tex_normal, uv, flat.expand_as(wi))
     n_t = 2.0 * rgb - 1.0
     # hemisphere-consistency shortcut (bsdf.cpp:295-297): where the mapped
     # normal faces away from wi, the nested BSDF runs unperturbed

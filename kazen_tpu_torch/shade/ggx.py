@@ -9,6 +9,7 @@ import math as pymath
 import torch
 
 from ..core import math as km
+from ..utils import metrics
 
 MIN_ALPHA = 1e-3
 
@@ -76,11 +77,11 @@ def sample_vndf(v, alpha, u2):
     )
     lensq = km.sqr(vh[..., 0]) + km.sqr(vh[..., 1])
     inv_len = 1.0 / torch.sqrt(torch.clamp(lensq, min=1e-9))
-    t1 = torch.where(
-        (lensq > 0.0)[..., None],
-        torch.stack([-vh[..., 1] * inv_len, vh[..., 0] * inv_len, torch.zeros_like(inv_len)], -1),
-        torch.tensor([1.0, 0.0, 0.0], dtype=v.dtype, device=v.device).expand_as(vh),
-    )
+    has_len = (lensq > 0.0)[..., None]
+    t1 = torch.stack([-vh[..., 1] * inv_len, vh[..., 0] * inv_len, torch.zeros_like(inv_len)], -1)
+    with metrics.sync("shade/ggx.py:sample_vndf torch.tensor"):
+        x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=v.dtype, device=v.device)
+    t1 = torch.where(has_len, t1, x_axis.expand_as(vh))
     t2 = km.normalize(km.cross(vh, t1))
     r = torch.sqrt(u2[..., 0])
     phi = 2.0 * pymath.pi * u2[..., 1]

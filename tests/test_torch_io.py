@@ -437,14 +437,21 @@ def test_splat_grid_band_matches_full(kind):
 
 
 def test_cli(tmp_path, capsys):
-    """The CLI on the CPU: PNG, EXR, --checkpoint and --distributed (gloo,
-    a group of one process); the EXR equals render() of the same file."""
+    """The CLI on the CPU: PNG (with --trace), EXR, --checkpoint and
+    --distributed (gloo, a group of one process); the EXR equals render() of
+    the same file."""
+    import json
+
     from kazen_tpu_torch.cli.main import main
 
     xml = write_xml_scene(tmp_path)
     out_png, out_exr = str(tmp_path / "out.png"), str(tmp_path / "out.exr")
-    main([xml, "-o", out_png, "--spp", "2", "--device", "cpu"])
+    trace = str(tmp_path / "trace.json")
+    main([xml, "-o", out_png, "--spp", "2", "--device", "cpu", "--trace", trace])
     assert io_t.load_png(out_png).shape == (12, 12, 3)
+    with open(trace) as f:
+        names = [e["name"] for e in json.load(f)["traceEvents"]]
+    assert names.count("compile_scene") == 1 and names.count("render.pass") == 2
     main([xml, "-o", out_exr, "--spp", "2", "--device", "cpu"])
     a_t, s_t = comp_t.compile_scene(xml_t.load_xml(xml), device="cpu")
     direct = render_t.render(a_t, s_t, spp=2, device="cpu").numpy()
@@ -482,10 +489,13 @@ def test_megakernel_fallback_is_logged(capsys):
 
 
 def test_log_timed_and_profiler_trace(tmp_path, capsys):
-    """LOG and timed write the reference's line formats to stderr;
-    profiler_trace writes a Chrome trace of what runs inside, and does
-    nothing without a directory."""
-    from kazen_tpu_torch.utils.metrics import LOG, profiler_trace, timed
+    """LOG and timed write the reference's line formats to stderr; the
+    tracer's export writes a Chrome trace of what ran with it on, and an
+    empty one of what ran with it off."""
+    import json
+
+    from kazen_tpu_torch.utils import metrics
+    from kazen_tpu_torch.utils.metrics import LOG, timed
 
     LOG("hello")
     with timed("a block"):
@@ -494,8 +504,17 @@ def test_log_timed_and_profiler_trace(tmp_path, capsys):
     assert err[0].startswith("[kazen-tpu ") and err[0].endswith("] hello")
     assert err[1].startswith("[kazen-tpu] a block: ") and err[1].endswith(" ms")
     a_t, s_t = compile_port(scenes.cornell_box(width=4, height=4, spp=1))
-    with profiler_trace(str(tmp_path / "prof")):
+    with metrics.tracing():
         render_t.render(a_t, s_t, device="cpu")
-    assert os.path.getsize(tmp_path / "prof" / "trace.json") > 0
-    with profiler_trace(None):
-        pass
+    metrics.write_chrome_trace(str(tmp_path / "trace.json"), metrics.collect())
+    with open(tmp_path / "trace.json") as f:
+        doc = json.load(f)
+    events = doc["traceEvents"]
+    assert {"render.call", "render.pass", "camera", "sampler.draw", "splat"} <= {
+        e["name"] for e in events}
+    assert all(e["ph"] == "X" and e["dur"] >= 0 and "id" in e["args"] for e in events)
+    assert doc["otherData"]["rays"] > 0
+    render_t.render(a_t, s_t, device="cpu")
+    metrics.write_chrome_trace(str(tmp_path / "off.json"), metrics.collect())
+    with open(tmp_path / "off.json") as f:
+        assert json.load(f)["traceEvents"] == []
