@@ -38,6 +38,7 @@ from ..core import math as km
 from ..samplers import streams
 from ..shade import bsdf as bsdf_mod
 from ..shade import lights as lights_mod
+from ..shade import textures as textures_mod
 from ..shade.interaction import Interaction, prepare_from_rows
 from ..utils import metrics
 
@@ -143,9 +144,10 @@ def _texture_footprint(static, its: Interaction, ray_d):
     the isotropic extent over min(|dpdu|, |dpdv|).
 
     Returns (lod, (maj_du, maj_dv)), (lod, None) without anisotropy, or
-    (None, None) when mip filtering is off or the scene has no image or
-    composite texture, whose lookups alone read the footprint."""
-    if not (static.mip_textures and (static.has_image_textures or static.has_composite_textures)):
+    (None, None) when mip filtering is off or no material field is textured
+    (textures.textured): material lookups alone read this footprint, and
+    the background computes its own (lights.background_radiance)."""
+    if not (static.mip_textures and textures_mod.textured(static)):
         return None, None
     # miss lanes carry t = 3e38: clamped to 1e8, far beyond any real
     # footprint, so that no product below overflows and the masked lanes'

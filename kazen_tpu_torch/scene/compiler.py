@@ -103,6 +103,10 @@ class MaterialTable:
 
 
 _MATERIAL_INT = {"btype", "tex_base", "tex_metallic", "tex_roughness", "nested", "tex_normal"}
+# a material's texture fields: the lookups of shade/bsdf.py by name, each
+# with its texture id column
+TEXTURE_FIELDS = {"base": "tex_base", "metallic": "tex_metallic",
+                  "roughness": "tex_roughness", "normal": "tex_normal"}
 
 
 @dataclass
@@ -215,6 +219,10 @@ class SceneStatic:
     pixel_cone: float = 0.0  # one pixel's footprint angle, for the mip level
     use_megakernel: bool = False  # render() takes integrate/megakernel.py
     mega_cfg: Optional[Tuple] = None  # the megakernel's static config
+    # the material texture fields (TEXTURE_FIELDS) that some material names a
+    # texture in, derived by compile_scene; None: any field may be textured
+    # (the fields of kazen_tpu's compile carry no such list)
+    textured_fields: Optional[Tuple[str, ...]] = None
 
 
 class _TexturePacker:
@@ -687,6 +695,8 @@ def compile_numpy(scene: D.Scene) -> "tuple[dict, dict]":
         mip_textures=bool(scene.mip_textures),
         aniso_textures=bool(getattr(scene, "aniso_textures", True)),
         pixel_cone=float(2.0 * np.tan(np.deg2rad(cam.fov) / 2.0) / cam.height),
+        textured_fields=tuple(field for field, col in TEXTURE_FIELDS.items()
+                              if any(r[col] >= 0 for r in mats.rows)),
     )
     return arrays, static
 

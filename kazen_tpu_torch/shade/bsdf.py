@@ -34,11 +34,12 @@ from ..scene.compiler import (
     BSDF_ROUGHCONDUCTOR,
     BSDF_ROUGHDIELECTRIC,
     BSDF_ROUGHPLASTIC,
+    TEXTURE_FIELDS,
     MaterialTable,
 )
 from ..utils import metrics
 from . import ggx
-from .textures import eval_texture
+from .textures import eval_texture, textured
 
 EPS = 1e-4  # reference Epsilon (define.h)
 
@@ -84,6 +85,30 @@ def _safe_dirs(m, *vs):
     return tuple(torch.where(m[..., None], v, z) for v in vs)
 
 
+def _field_textured(static, field):
+    """The route of one lookup of material texture ``field``: True for the
+    texture graph, False where no material textures the field and the rows'
+    constants are every lane's value (textures.textured). The tracer counts
+    the lookup by route."""
+    image = textured(static, field)
+    metrics.texture_lookup(field, "image" if image else "constant")
+    return image
+
+
+def _material_texture(static, tex, mp, field, uv):
+    """Material parameter ``field`` ("base", "metallic" or "roughness") per
+    lane: its texture where the lane's material names one, else the row's
+    constant (``base_color``, ``metallic``, ``roughness``); a scalar
+    parameter reads its texture's first channel."""
+    const = mp.base_color if field == "base" else getattr(mp, field)
+    if not _field_textured(static, field):
+        return const
+    tex_id = getattr(mp, TEXTURE_FIELDS[field])
+    if field == "base":
+        return eval_texture(static, tex, tex_id, uv, const)
+    return eval_texture(static, tex, tex_id, uv, torch.stack([const] * 3, -1))[..., 0]
+
+
 # ---------------------------------------------------------------------------
 # diffuse (bsdf.cpp:63-106) and lambertian (bsdf.cpp:202-276)
 # ---------------------------------------------------------------------------
@@ -93,7 +118,7 @@ def _albedo(static, tex, mp, uv, btype):
     """diffuse keeps a constant albedo; lambertian reads its albedo
     texture."""
     if btype == BSDF_LAMBERTIAN:
-        return eval_texture(static, tex, mp.tex_base, uv, mp.base_color)
+        return _material_texture(static, tex, mp, "base", uv)
     return mp.base_color
 
 
@@ -159,7 +184,7 @@ def _dielectric_sample(mp, wi, s1):
 
 
 def _ggx_eval(static, tex, mp, uv, wi, wo):
-    albedo = eval_texture(static, tex, mp.tex_base, uv, mp.base_color)
+    albedo = _material_texture(static, tex, mp, "base", uv)
     f, _ = ggx.eval_ggx_smith_brdf(wi, wo, albedo, mp.roughness, mp.anisotropy)
     m = (_cos(wi) > 0.0) & (_cos(wo) > 0.0)
     return _mask3(m, f * _cos(wo)[..., None])
@@ -363,20 +388,9 @@ def _roughdielectric_sample(mp, wi, s1, s2):
 # ---------------------------------------------------------------------------
 
 
-def _scalar_texture(static, tex, tex_id, uv, const):
-    """A scalar parameter's texture: its first channel, the constant on
-    untextured lanes (every lane where the scene has no image or composite
-    texture, as eval_texture says)."""
-    if not static.has_composite_textures and not static.has_image_textures:
-        return const
-    return eval_texture(static, tex, tex_id, uv, torch.stack([const] * 3, -1))[..., 0]
-
-
 def _kiss_textures(static, tex, mp, uv):
-    base = eval_texture(static, tex, mp.tex_base, uv, mp.base_color)
-    metallic = _scalar_texture(static, tex, mp.tex_metallic, uv, mp.metallic)
-    roughness = _scalar_texture(static, tex, mp.tex_roughness, uv, mp.roughness)
-    return base, metallic, roughness
+    return tuple(_material_texture(static, tex, mp, field, uv)
+                 for field in ("base", "metallic", "roughness"))
 
 
 def _schlick_weight(x):
@@ -666,9 +680,13 @@ def make_ctx(static, scene, mat_id, uv, sh_frame, wi, dpdu=None, lod=None,
         raise ValueError("a scene with a normal map needs the hits' dpdu")
     is_nm = mp.btype == BSDF_NORMALMAP
     mp_eff = scene.materials.rows(torch.where(is_nm, mp.nested, mat_id))
-    with metrics.sync("shade/bsdf.py:make_ctx torch.tensor"):
-        flat = torch.tensor([0.5, 0.5, 1.0], dtype=wi.dtype, device=wi.device)
-    rgb = eval_texture(static, tex, mp.tex_normal, uv, flat.expand_as(wi))
+    if _field_textured(static, "normal"):
+        with metrics.sync("shade/bsdf.py:make_ctx torch.tensor"):
+            flat = torch.tensor([0.5, 0.5, 1.0], dtype=wi.dtype, device=wi.device)
+        rgb = eval_texture(static, tex, mp.tex_normal, uv, flat.expand_as(wi))
+    else:  # the flat (0.5, 0.5, 1) on every lane
+        rgb = torch.full_like(wi, 0.5)
+        rgb[..., 2] = 1.0
     n_t = 2.0 * rgb - 1.0
     # hemisphere-consistency shortcut (bsdf.cpp:295-297): where the mapped
     # normal faces away from wi, the nested BSDF runs unperturbed
@@ -730,7 +748,7 @@ def regularize_ctx(static, ctx: ShadeCtx):
     if BSDF_KISS not in static.btypes_present:
         return torch.zeros(ctx.uv.shape[:-1], device=ctx.uv.device)
     mp = ctx.mp_eff
-    rough = _scalar_texture(static, ctx.textures, mp.tex_roughness, ctx.uv, mp.roughness)
+    rough = _material_texture(static, ctx.textures, mp, "roughness", ctx.uv)
     return torch.where(mp.btype == BSDF_KISS, rough, 0.0)
 
 

@@ -139,6 +139,21 @@ def _combine(pool, tid, child_eval):
     return torch.where((tt == TEX_BLEND_MULTIPLY)[..., None], multiplied, out)
 
 
+def textured(static, field=None) -> bool:
+    """Whether material lookups of texture ``field`` (a key of the
+    compiler's TEXTURE_FIELDS; None: of any field) may read the texture
+    graph: the scene holds an image or composite node, and some material
+    names a texture in that field (``static.textured_fields``, None where
+    unknown: every field may). Otherwise every lane's value is the
+    material row's constant, which is what eval_texture would select."""
+    if not (static.has_image_textures or static.has_composite_textures):
+        return False
+    fields = static.textured_fields
+    if fields is None:
+        return True
+    return bool(fields) if field is None else field in fields
+
+
 def eval_texture(static, pool, tex_id, uv, const_color, lod=None):
     """Texture<Color3f>::eval(uv) over the texture graph: the node's value
     where ``tex_id >= 0``, else the per-lane ``const_color`` (N, 3).

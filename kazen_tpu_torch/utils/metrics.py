@@ -14,9 +14,10 @@ attributes. While torch.profiler runs, each span also opens a
 can be put in its span by correlation id. A ``render.pass`` span on the
 card records a CUDA event at its start and end; nothing waits on them until
 ``collect()``, which makes the one synchronize and returns the spans and
-counters (host reads by site, CUDA kernel launches, rays traced) and clears
-them. ``write_chrome_trace`` writes what ``collect()`` returned as a Chrome
-trace (the CLI's ``--trace FILE``). The tracer keeps one record for the
+counters (host reads by site, material texture lookups by field and route,
+CUDA kernel launches, rays traced) and clears them. ``write_chrome_trace``
+writes what ``collect()`` returned as a Chrome trace (the CLI's ``--trace
+FILE``). The tracer keeps one record for the
 process and is not thread-safe.
 
 ``RenderMetrics`` times each pass of a ``render(metrics=...)`` call with
@@ -87,7 +88,8 @@ class Span:
 class _Record:
     """What the tracer recorded: the open spans' stack and, since tracing
     began or the last collect(), the closed spans, the host reads by site,
-    the ray tensors and the kernels' launch counts at the start."""
+    the texture lookups by field and route, the ray tensors and the
+    kernels' launch counts at the start."""
 
     def __init__(self):
         self.offset_ns = time.time_ns() - time.perf_counter_ns()
@@ -95,6 +97,7 @@ class _Record:
         self.stack: List[Span] = []
         self.spans: List[Span] = []
         self.host_reads = {}
+        self.texture_lookups = {}
         self.rays = []
         self.launches0 = _launch_counts()
 
@@ -193,6 +196,16 @@ def sync(site: str, reads: bool = True):
     return _Open("sync", {"site": site}, None)
 
 
+def texture_lookup(field: str, route: str) -> None:
+    """Count one material texture lookup of ``field`` ("base", "metallic",
+    "roughness", "normal") by the route shade/bsdf.py chose for it:
+    "constant" (no material textures the field: the row's constant, no
+    fetch) or "image" (the texture graph, eval_texture)."""
+    if _on:
+        by_route = _rec.texture_lookups.setdefault(field, {"constant": 0, "image": 0})
+        by_route[route] += 1
+
+
 def rays(nrays) -> None:
     """Keep a pass's ray count (a device tensor) for ``collect()``, which
     sums them once."""
@@ -203,16 +216,18 @@ def rays(nrays) -> None:
 def collect() -> dict:
     """Everything recorded since tracing began or the last collect(), which
     is cleared: ``spans`` (closed spans, in the order they closed),
-    ``host_reads`` ({site: count}), ``launches`` ({CUDA kernel: launches
-    since}), ``rays`` (their sum). One synchronize where a span recorded
-    CUDA events or a ray count lives on the card. Spans still open go to
-    the next collect()."""
+    ``host_reads`` ({site: count}), ``texture_lookups`` ({field: {route:
+    count}}), ``launches`` ({CUDA kernel: launches since}), ``rays`` (their
+    sum). One synchronize where a span recorded CUDA events or a ray count
+    lives on the card. Spans still open go to the next collect()."""
     global _rec
     rec = _rec
     if rec is None:
-        return {"spans": [], "host_reads": {}, "launches": {}, "rays": 0.0}
+        return {"spans": [], "host_reads": {}, "texture_lookups": {}, "launches": {},
+                "rays": 0.0}
     spans, rec.spans = rec.spans, []
     reads, rec.host_reads = rec.host_reads, {}
+    lookups, rec.texture_lookups = rec.texture_lookups, {}
     counts, rec.rays = rec.rays, []
     launches0, rec.launches0 = rec.launches0, _launch_counts()
     if not _on and not rec.stack:
@@ -224,7 +239,8 @@ def collect() -> dict:
     launches = {k: n - launches0.get(k, 0) for k, n in rec.launches0.items()
                 if n != launches0.get(k, 0)}
     total = float(torch.stack([r.double() for r in counts]).sum()) if counts else 0.0
-    return {"spans": spans, "host_reads": reads, "launches": launches, "rays": total}
+    return {"spans": spans, "host_reads": reads, "texture_lookups": lookups,
+            "launches": launches, "rays": total}
 
 
 def write_chrome_trace(path: str, collected: dict) -> None:
@@ -242,6 +258,7 @@ def write_chrome_trace(path: str, collected: dict) -> None:
                        "dur": (s.end_ns - s.start_ns) / 1e3, "pid": pid, "tid": 0,
                        "args": args})
     other = {"clock": "unix", "host_reads": collected["host_reads"],
+             "texture_lookups": collected["texture_lookups"],
              "launches": collected["launches"], "rays": collected["rays"]}
     with open(path, "w") as f:
         json.dump({"traceEvents": events, "displayTimeUnit": "ms", "otherData": other}, f,

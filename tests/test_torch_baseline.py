@@ -37,7 +37,12 @@ from kazen_tpu_torch.integrate import render as render_t
 from kazen_tpu_torch.samplers import tables as tables_t
 from kazen_tpu_torch.shade import medium as medium_t
 
-from torch_port_helpers import compile_port, compile_reference, port_from_reference
+from torch_port_helpers import (
+    assert_carried_static_equal,
+    compile_port,
+    compile_reference,
+    port_from_reference,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXACT = (
@@ -117,7 +122,7 @@ def test_example_tables_match_reference(example, n):
     a_j, s_j = compile_reference(desc)
     a_t, s_t = compile_port(desc)
     a_r, s_r = port_from_reference(a_j, s_j)
-    assert s_r == s_t
+    assert_carried_static_equal(s_r, s_t)
     _tables_equal(a_r, a_t)
 
 

@@ -14,6 +14,8 @@ from kazen_tpu_torch.scene import compiler as comp_t
 from kazen_tpu_torch.scene import description as DT
 
 from torch_port_helpers import (
+    assert_carried_static_equal,
+    assert_static_equal,
     compile_port,
     compile_reference,
     materials_scene,
@@ -104,16 +106,15 @@ def test_triangle_records_follow_geo_shade(both):
 
 
 def test_static_equal(both):
-    (_, s_j), (_, s_t) = both
-    for f in dataclasses.fields(s_t):
-        assert getattr(s_t, f.name) == getattr(s_j, f.name), f.name
+    (a_j, s_j), (_, s_t) = both
+    assert_static_equal(s_t, s_j, a_j)
 
 
 def test_scene_from_numpy_round_trip(both):
     """kazen_tpu's compiled scene carried across equals the port's compile."""
     (a_j, s_j), (a_t, s_t) = both
     a_r, s_r = port_from_reference(a_j, s_j)
-    assert s_r == s_t
+    assert_carried_static_equal(s_r, s_t)
     for name in EXACT:
         assert torch.equal(getattr(a_r, name), getattr(a_t, name)), name
     for f in dataclasses.fields(a_t.materials):

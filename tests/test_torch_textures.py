@@ -45,7 +45,13 @@ from kazen_tpu_torch.shade import interaction as inter_t
 from kazen_tpu_torch.shade import lights as lights_t
 from kazen_tpu_torch.shade import textures as tex_t
 
+from kazen_tpu_torch.diff import inverse
+from kazen_tpu_torch.examples import baseline_configs as bc
+from kazen_tpu_torch.scene.compiler import compile_scene
+
 from torch_port_helpers import (
+    assert_static_equal,
+    base_textured_scene,
     compile_port,
     compile_reference,
     port_from_reference,
@@ -72,8 +78,8 @@ def test_compiled_tables_equal(textured):
     _, (a_j, s_j), (a_t, s_t), _ = textured
     assert s_t.has_image_textures and s_t.has_composite_textures and s_t.env_importance
     assert s_t.mip_textures and s_t.aniso_textures and s_t.sampler_kind == "pmj02bn"
-    for f in dataclasses.fields(s_t):
-        assert getattr(s_t, f.name) == getattr(s_j, f.name), f.name
+    assert s_t.textured_fields == ("base", "metallic", "roughness", "normal")
+    assert_static_equal(s_t, s_j, a_j)
     for f in dataclasses.fields(a_t.textures):
         np.testing.assert_array_equal(
             getattr(a_t.textures, f.name).numpy(), np.asarray(getattr(a_j.textures, f.name)),
@@ -330,3 +336,73 @@ def test_lane_chunked_render_matches_grid(plain_textured):
     img = render_t.render(a_t, s_t, spp=2, lane_chunk=160, device="cpu").numpy()
     grid = render_t.render(a_t, s_t, spp=2, device="cpu").numpy()
     _assert_render_close(img, grid)
+
+
+def _con2(width, height, spp):
+    """BASELINE's config 4 (kazen-con-2: diffuse walls and a kiss sphere,
+    every material parameter a constant; a lat-long image background, mip
+    filtering, pmj02bn) at ``width`` x ``height``, compiled on the CPU."""
+    return compile_scene(bc.at_size(bc.config_scene(4, spp=spp), width, height), device="cpu")
+
+
+def test_untextured_fields_render_bit_for_bit():
+    """con-2's only image is its background, so no material field is
+    textured: its lookups return the rows' constants without the image path
+    (and without the footprint), and the image equals the one every lookup
+    running the image path gives (textured_fields None), bit for bit."""
+    a_t, s_t = _con2(64, 36, 2)
+    assert s_t.has_image_textures and s_t.mip_textures and s_t.textured_fields == ()
+    img = render_t.render(a_t, s_t, device="cpu")
+    img_image_path = render_t.render(
+        a_t, dataclasses.replace(s_t, textured_fields=None), device="cpu")
+    assert img.mean() > 0.01
+    assert torch.equal(img, img_image_path)
+
+
+def test_untextured_fields_gradients_match_the_image_path():
+    """The constant route gives the image path's loss bit for bit and its
+    gradients (materials, the background's texels, the background colour;
+    one pass of con-2 at 16x9), whose torch.where gave the discarded fetch
+    nothing. The gradients agree to the last bits only: without the where
+    nodes the backward adds a parameter's uses in another order."""
+    a_t, s_t = _con2(16, 9, 1)
+    spec = render_t.sampler_spec(s_t, "cpu")
+    target = torch.full((s_t.height, s_t.width, 3), 0.25)
+    losses, grads = [], []
+    for static in (s_t, dataclasses.replace(s_t, textured_fields=None)):
+        params = inverse.as_leaves(inverse.get_params(a_t, ("materials", "texels", "bg_color")))
+        loss = inverse.image_loss(inverse.render_image(a_t, static, spec, params, [0]), target)
+        losses.append(loss)
+        grads.append(torch.autograd.grad(loss, inverse.leaves(params), allow_unused=True))
+    assert torch.equal(*losses)
+    assert sum(g is not None and bool(g.abs().sum() > 0) for g in grads[0]) >= 5
+    for g, g_image_path in zip(*grads):
+        assert (g is None) == (g_image_path is None)
+        if g is not None:
+            torch.testing.assert_close(g, g_image_path, rtol=1e-5,
+                                       atol=1e-6 * float(g_image_path.abs().max()))
+
+
+@pytest.fixture(scope="module")
+def base_textured():
+    """(the reference's compile, the port's) of a scene whose materials
+    texture their base colour alone."""
+    desc = base_textured_scene()
+    return compile_reference(desc), compile_port(desc)
+
+
+def test_base_only_textures_match_reference(base_textured):
+    """Mixed fields: the compiler names ``base`` alone; base keeps the image
+    path on every lane of that field, metallic, roughness and the normal
+    take their constants, and li_wavefront (pmj02bn, sample index 2) holds
+    to the reference at test_textured_wavefront_matches_reference's limits
+    and to the all-image path bit for bit."""
+    (a_j, s_j), (a_t, s_t) = base_textured
+    assert s_t.textured_fields == ("base",) and s_t.mip_textures
+    _, li_j, nr_j = pm_j.li_wavefront(a_j, s_j, *_lanes_reference(a_j, s_j, 2))
+    _, li_t, nr_t = pm_t.li_wavefront(a_t, s_t, *_lanes_port(a_t, s_t, 2))
+    _assert_render_close(li_t.numpy(), np.asarray(li_j))
+    assert abs(float(nr_t) - float(nr_j)) <= 1e-3 * float(nr_j)
+    s_image_path = dataclasses.replace(s_t, textured_fields=None)
+    _, li_image_path, _ = pm_t.li_wavefront(a_t, s_image_path, *_lanes_port(a_t, s_t, 2))
+    assert torch.equal(li_t, li_image_path)

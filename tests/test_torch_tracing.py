@@ -11,12 +11,13 @@ import pytest
 import torch
 
 from kazen_tpu_torch.diff import inverse
+from kazen_tpu_torch.examples import baseline_configs as bc
 from kazen_tpu_torch.integrate import render as render_t
 from kazen_tpu_torch.lab import pass_split
 from kazen_tpu_torch.scene.compiler import compile_scene
 from kazen_tpu_torch.utils import metrics
 
-from torch_port_helpers import multi_cluster_scene, to_port
+from torch_port_helpers import multi_cluster_scene, textured_scene, to_port
 
 SIZE = 16  # a 16x16 Cornell box with a kiss sphere, several clusters
 
@@ -76,7 +77,8 @@ def test_tracer_off_records_and_touches_nothing(what, scenes, monkeypatch):
     monkeypatch.setattr(metrics, "Span", Untouchable("Span"))
     run(what, scenes)
     monkeypatch.undo()
-    assert metrics.collect() == {"spans": [], "host_reads": {}, "launches": {}, "rays": 0.0}
+    assert metrics.collect() == {"spans": [], "host_reads": {}, "texture_lookups": {},
+                                 "launches": {}, "rays": 0.0}
 
 
 NESTING = {
@@ -231,6 +233,48 @@ def test_span_times_are_on_the_profilers_clock(name, profiled):
     starts = [abs(s0 - e0) for (s0, _), (e0, _) in zip(mine, theirs)]
     ends = [abs(s1 - e1) for (_, s1), (_, e1) in zip(mine, theirs)]
     assert statistics.median(starts) < 1e6 and statistics.median(ends) < 1e6, (starts, ends)
+
+
+# the host reads of one con-2 pass by site (PERF.md §5): the texture routes
+# move none of them
+CON2_READS_PER_PASS = {
+    "core/rng.py:permute as_tensor(l)": 33, "core/rng.py:permute ok.all()": 33,
+    "accel/cluster_trace.py:pack_rays as_tensor(mint)": 5,
+    "shade/ggx.py:sample_vndf torch.tensor": 5, "integrate/camera.py:sample_ray torch.tensor": 1,
+}
+
+
+@pytest.mark.parametrize("scene", ["con2", "textured"])
+def test_texture_lookups_count_each_route(scene):
+    """The texture_lookups counter by field and route, one 1-pass render:
+    con-2's materials texture no field, so every lookup takes the constant
+    route, and its host reads stay 77 a pass; the textured scene's base,
+    roughness and normal fields take the image route, its constant metallic
+    the constant one. With the tracer off nothing is counted."""
+    if scene == "con2":
+        desc = bc.at_size(bc.config_scene(4, spp=1), 32, 18)
+        textured = ()
+    else:
+        desc = to_port(textured_scene(16, 16, spp=1, composite=False))
+        textured = ("base", "roughness", "normal")
+    arrays, static = compile_scene(desc, device="cpu")
+    assert static.has_image_textures and static.textured_fields == textured
+    metrics.collect()
+    render_t.render(arrays, static, device="cpu")
+    assert metrics.collect()["texture_lookups"] == {}
+    _, got = traced(lambda: render_t.render(arrays, static, device="cpu"))
+    lookups = got["texture_lookups"]
+    fields = {"base", "metallic", "roughness"} | ({"normal"} if textured else set())
+    assert set(lookups) == fields
+    for field, routes in lookups.items():
+        if field in textured:
+            assert routes["image"] > 0 and routes["constant"] == 0, (field, routes)
+        else:
+            assert routes["image"] == 0 and routes["constant"] > 0, (field, routes)
+    if scene == "con2":
+        reads = {k: v for k, v in got["host_reads"].items() if not k.startswith("samplers/")}
+        assert reads == CON2_READS_PER_PASS
+        assert sum(reads.values()) == 77
 
 
 def test_render_metrics_read_once_when_the_call_ends(scenes):

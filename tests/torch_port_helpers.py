@@ -17,8 +17,8 @@ from kazen_tpu.scene.compiler import compile_scene as compile_jax
 from kazen_tpu_torch.accel import native as native_t
 from kazen_tpu_torch.dist.multihost import free_port
 from kazen_tpu_torch.scene import description as DT
+from kazen_tpu_torch.scene.compiler import TEXTURE_FIELDS, scene_from_numpy
 from kazen_tpu_torch.scene.compiler import compile_scene as compile_torch
-from kazen_tpu_torch.scene.compiler import scene_from_numpy
 
 from scenes import cornell_box, make_mesh, sphere_mesh
 
@@ -157,6 +157,31 @@ def port_from_reference(arrays, static):
     return scene_from_numpy(*reference_to_numpy(arrays, static), device="cpu")
 
 
+def textured_fields_of(materials):
+    """The texture fields that some row of a material table (either
+    package's) names a texture in, in the port compiler's order."""
+    return tuple(field for field, col in TEXTURE_FIELDS.items()
+                 if (np.asarray(getattr(materials, col)) >= 0).any())
+
+
+def assert_static_equal(s_t, s_j, a_j):
+    """The port's compiled static fields equal kazen_tpu's, and its own
+    ``textured_fields`` (kazen_tpu has none) are those that kazen_tpu's
+    material table names a texture in."""
+    for f in dataclasses.fields(s_t):
+        if f.name != "textured_fields":
+            assert getattr(s_t, f.name) == getattr(s_j, f.name), f.name
+    assert s_t.textured_fields == textured_fields_of(a_j.materials)
+
+
+def assert_carried_static_equal(s_r, s_t):
+    """kazen_tpu's static carried across (port_from_reference) equals the
+    port's compile, save for the fields kazen_tpu has none of, which keep
+    the defaults (textured_fields None: every field may be textured)."""
+    assert s_r.textured_fields is None
+    assert dataclasses.replace(s_r, textured_fields=s_t.textured_fields) == s_t
+
+
 def _bump_normals(res, seed):
     """A tangent-space normal map of smooth random bumps, as linear RGB."""
     rng = np.random.RandomState(seed)
@@ -225,6 +250,20 @@ def textured_scene(width=24, height=24, sampler="pmj02bn", spp=4, max_depth=4, i
         nested=DJ.Diffuse((0.7, 0.7, 0.65)),
         normals=DJ.ImageTexture(data=_bump_normals(64, 5), colorspace="linear"),
     ))
+    return desc
+
+
+def base_textured_scene(width=24, height=24):
+    """textured_scene without composite nodes, with the kiss sphere's
+    roughness a constant and a plain diffuse floor: its materials texture
+    their base colour alone (and the sky is an image)."""
+    desc = textured_scene(width, height, composite=False)
+    for i, mesh in enumerate(desc.meshes):
+        if isinstance(mesh.bsdf, DJ.KazenStandard):
+            desc.meshes[i] = dataclasses.replace(
+                mesh, bsdf=dataclasses.replace(mesh.bsdf, roughness=DJ.ConstantTexture((0.3,) * 3)))
+        elif isinstance(mesh.bsdf, DJ.NormalMap):
+            desc.meshes[i] = dataclasses.replace(mesh, bsdf=mesh.bsdf.nested)
     return desc
 
 
