@@ -173,10 +173,20 @@ Phases (each check raises; the script exits non-zero on the first failure):
     columns, K2 on the original's rays, the least-squares fit of K1's ms on
     the warps' node steps and triangle tests; K1's rows 0-36 against the
     plain walk on 65,536 bounce-1 lanes.
+22. The shade kernel (phase_shade, kazen_tpu_torch/lab/shade_check.py): one
+    pass of config 4 (con-2, 1920x1080), config 2 (256x256) and the mixed
+    box (every lobe of the kernel's set; with a sphere, several clusters,
+    and without, one) with every bounce's shade stage run by the kernel
+    and by the plain version on the same inputs, each column equal bit for
+    bit; the main path launched the kernel (``shade_route`` kernel on every
+    bounce, one launch each); its ms a launch, its bytes bound and the
+    plain version's ms; then ``shade_route`` of a con-2 render() pass
+    (kernel on every bounce) and of config 3 and Textured render() passes
+    and a con-2 optimize() step (plain on every bounce).
 
-Each of phases 10-21 logs its seconds, and the script its total. Phases
-17-21 can run alone after phase 0's builds (phase_lab, phase_measure,
-phase_baseline, phase_cliff, phase_ablate).
+Each of phases 10-22 logs its seconds, and the script its total. Phases
+17-22 can run alone after phase 0's builds (phase_lab, phase_measure,
+phase_baseline, phase_cliff, phase_ablate, phase_shade).
 Every comparison of radiance holds PERF.md's gate: per-lane radiance within
 rtol 1e-3 / atol 1e-4 on >= 99% of lanes, channel means within 0.5% and ray
 totals within 0.1%.
@@ -1999,8 +2009,80 @@ def phase_ablate(torch, smi, out_dir):
     return res
 
 
-def main() -> int:
-    import torch
+# the shade kernel's cases (phase 22): lab/shade_check.py's configurations
+# and sizes
+SHADE_CASES = (("4", None), ("2", None), ("mixed", (256, 256)), ("mixed_single", (128, 128)))
+
+
+def phase_shade(torch, smi) -> dict:
+    """Phase 22: the shade kernel held against its plain version on every
+    bounce of one pass of each SHADE_CASES case, then the main path's route
+    in a con-2 render() pass (the kernel) and in passes of scenes and calls
+    outside the kernel's class (the plain version); the kernel's row of the
+    kernel table."""
+    from kazen_tpu_torch.diff.inverse import optimize
+    from kazen_tpu_torch.examples import baseline_configs as bc
+    from kazen_tpu_torch.integrate.render import render
+    from kazen_tpu_torch.scene import description as D
+    from kazen_tpu_torch.lab import shade_check
+    from kazen_tpu_torch.scene.compiler import compile_scene
+    from kazen_tpu_torch.shade import bounce_kernel
+    from kazen_tpu_torch.utils import metrics
+
+    cases = {}
+    for config, size in SHADE_CASES:
+        out = shade_check.main(config, size)
+        cases[config] = {k: v for k, v in out.items() if k != "records"}
+        cases[config]["bounce_ms"] = [r["ms"] for r in out["records"]]
+        cases[config]["bounce_plain_ms"] = [r["plain_ms"] for r in out["records"]]
+        depth = len(out["records"])
+        log(f"phase 22: {config} {out['width']}x{out['height']}: kernel {out['ms_per_launch']:.4f}"
+            f" ms a launch (bound {out['bound_ms']:.4f}), plain {out['plain_ms']:.3f} ms; "
+            f"shade_route {out['shade_route']}, launches {out['kernel_launches']}; {smi}")
+        if not out["equal"]:
+            raise AssertionError(f"phase 22: {config}: columns differ: {out['differ']}")
+        if out["shade_route"] != {"kernel": depth} or out["kernel_launches"] != depth:
+            raise AssertionError(f"phase 22: {config}: the main path did not launch the kernel "
+                                 f"on every bounce: {out['shade_route']}, "
+                                 f"{out['kernel_launches']} launches")
+    scene, static = compile_scene(bc.config_scene(4, spp=1), device="cuda")
+    metrics.collect()
+    before = bounce_kernel.SHADE.launches
+    with metrics.tracing():
+        render(scene, static, spp=1, device="cuda")
+    got = metrics.collect()
+    launches = bounce_kernel.SHADE.launches - before
+    log(f"phase 22: con-2 render() pass: shade_route {got['shade_route']}, "
+        f"{launches} shade kernel launches")
+    if got["shade_route"] != {"kernel": static.max_depth} or launches != static.max_depth:
+        raise AssertionError("phase 22: render() did not take the shade kernel on every bounce")
+    plain_routes = {}
+    for name, desc in (("config 3", bc.at_size(bc.config_scene(3, spp=1), SMALL_W, SMALL_W)),
+                       ("Textured", textured_scene(D, SMALL_W, SMALL_H)),
+                       ("con-2 optimize", bc.at_size(bc.config_scene(4, spp=1), SMALL_W,
+                                                     SMALL_H))):
+        sc, st = compile_scene(desc, device="cuda")
+        metrics.collect()
+        with metrics.tracing():
+            if name.endswith("optimize"):
+                optimize(sc, st, torch.full((st.height, st.width, 3), 0.25, device="cuda"),
+                         steps=1)
+            else:
+                render(sc, st, spp=1, device="cuda")
+        plain_routes[name] = metrics.collect()["shade_route"]
+        log(f"phase 22: {name} {st.width}x{st.height}: shade_route {plain_routes[name]}")
+        if plain_routes[name] != {"plain": st.max_depth}:
+            raise AssertionError(f"phase 22: {name} did not take the plain shade stage")
+    con2 = cases["4"]
+    return {"cases": cases, "render_shade_route": got["shade_route"],
+            "plain_routes": plain_routes, "row": {
+        "name": bounce_kernel.SHADE.name, "route": "cuda",
+        "source": "kazen_tpu_torch/shade/csrc/bounce.cu", "replaces": bounce_kernel.SHADE.replaces,
+        "launches": launches, "ms": con2["ms_per_launch"], "bound_ms": con2["bound_ms"],
+        "bound_by": "bytes", "plain_ms": con2["plain_ms"], "library_ms": None,
+        "agreement": "bit for bit on every column"}}
+
+
 def main() -> int:
     import torch
 
@@ -2016,6 +2098,7 @@ def main() -> int:
     from kazen_tpu_torch.lab import kernel_ablate
     from kazen_tpu_torch.scene import description as D
     from kazen_tpu_torch.scene.compiler import compile_scene
+    from kazen_tpu_torch.shade import bounce_kernel
 
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -2028,14 +2111,18 @@ def main() -> int:
         f_trace = pool.submit(ct.build_library)
         f_mega = pool.submit(mk.build_library)
         f_lab = pool.submit(lab.build_library)
+        f_shade = pool.submit(bounce_kernel.build_library)
         f_bvh = pool.submit(bvh_library)
         nvcc_out = {"trace": f_trace.result()[1], "megakernel": f_mega.result()[1],
-                    "lab": f_lab.result()[1]}
+                    "lab": f_lab.result()[1], "shade": f_shade.result()[1]}
         f_bvh.result()
     build_s = time.time() - t0
     smi = card_line()  # nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
-    log(f"phase 0: built the trace kernels, the megakernel, the lab probes and the BVH builder "
-        f"in {build_s:.1f} s")
+    log(f"phase 0: built the trace kernels, the megakernel, the lab probes, the shade kernel "
+        f"and the BVH builder in {build_s:.1f} s")
+    for line in nvcc_out["shade"].splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas (shade): {line.strip()}")
     for line in nvcc_out["lab"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas (lab): {line.strip()}")
@@ -2537,6 +2624,11 @@ def main() -> int:
     t_phase = time.time()
     ablate = phase_ablate(torch, smi, out_dir)
     log(f"phase 21: {time.time() - t_phase:.1f} s")
+
+    # ---- phase 22: the shade kernel against its plain version ---------------
+    t_phase = time.time()
+    shade = phase_shade(torch, smi)
+    log(f"phase 22: {time.time() - t_phase:.1f} s")
     original = ablate["rows"][ablate["original"]]
     rows[0]["nofetch"] = {
         "ms": original["nofetch_ms"], "default_ms": original["ms"], "rays": ablate["original"],
@@ -2572,6 +2664,7 @@ def main() -> int:
         "toy_ms_by_variant": {k_: v["ms"] for k_, v in passes["Toy"]["variants"].items()},
     })
     rows.extend(lab_rows)
+    rows.append(shade.pop("row"))
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "trace_ptxas": trace_regs, "pass_ms": pass_ms,
                    "rays_per_pass": nrays_stand_in,
@@ -2581,7 +2674,7 @@ def main() -> int:
                    "textured": textured, "gradients": grads, "files": files,
                    "distributed": distributed, "lab": lab_out,
                    "measure": {k: measure[k] for k in ("rows", "glue")},
-                   "baseline": baseline, "cliff": cliff, "ablate": ablate,
+                   "baseline": baseline, "cliff": cliff, "ablate": ablate, "shade": shade,
                    "total_s": time.time() - t_start},
                   f, indent=1)
     log(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s")

@@ -9,7 +9,9 @@ pieces. They are not on a path of ``render()``.
 Measuring scripts sit beside them: ``profile_pass2`` (the stage
 attribution of a render pass, the port of ``benchmarks/profile_pass2.py``)
 and ``glue_lab`` (the micro-costs of the PyTorch glue, the port of
-``benchmarks/xla_lab.py``), which have no kernel of their own.
+``benchmarks/xla_lab.py``), which have no kernel of their own, and
+``shade_check`` (the shade kernel of ``shade/bounce_kernel.py`` held against
+its plain version on a pass's bounces).
 
 The three kernels live in one source, ``csrc/lab.cu``, built by
 ``cuda_build.build_library`` into one ctypes library. Each wrapper launches

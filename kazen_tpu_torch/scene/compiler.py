@@ -18,8 +18,9 @@ always packed, whatever the scene's size. A scene in the megakernel's class
 (integrate/megakernel.py:supported_reason: at most 128 faces, 16 materials
 and 64 light triangles, constant textures) also gets the megakernel's
 tables, and on CUDA ``use_megakernel``: render() then runs the whole path
-of a lane in one kernel, as the reference does on its accelerator.
-``scene_from_numpy`` builds the same pair from kazen_tpu's compiled scene
+of a lane in one kernel, as the reference does on its accelerator. A
+scene in the shade kernel's class (shade/bounce_kernel.py:supported_reason)
+gets its material and light tables. ``scene_from_numpy`` builds the same pair from kazen_tpu's compiled scene
 converted to numpy.
 """
 from __future__ import annotations
@@ -181,6 +182,7 @@ class SceneArrays:
     env_col_cdf: torch.Tensor  # (Eh, Ew + 1) per-row conditional CDF
     env_pdf: torch.Tensor  # (Eh, Ew) solid-angle pdf per texel
     mega: Optional[object] = None  # integrate/megakernel.py:MegaTables
+    shade_tables: Optional[object] = None  # shade/bounce_kernel.py:ShadeTables
 
     @property
     def device(self) -> torch.device:
@@ -747,7 +749,8 @@ def scene_from_numpy(
     form field by field, which is how the tests feed both packages one
     scene.
 
-    The megakernel's tables are packed here for a scene in its class.
+    The megakernel's tables, and the shade kernel's, are packed here for a
+    scene in their class.
     ``megakernel`` picks the route render() takes for such a scene: None
     takes the megakernel on CUDA and the wavefront on the CPU (the
     reference's default off its accelerator), True and False force it. True
@@ -810,6 +813,10 @@ def scene_from_numpy(
         env_row_cdf=f32("env_row_cdf"), env_col_cdf=f32("env_col_cdf"),
         env_pdf=f32("env_pdf"),
     )
+    from ..shade import bounce_kernel
+
+    if bounce_kernel.supported_reason(scene, static)[0]:
+        scene = dataclasses.replace(scene, shade_tables=bounce_kernel.pack_tables(scene))
     return _with_megakernel(scene, static, megakernel)
 
 

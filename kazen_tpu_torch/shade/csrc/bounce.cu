@@ -1,0 +1,765 @@
+// A bounce's shade stage on Hopper (sm_90a): one thread per lane, from the
+// trace kernel K1's rows to the columns the ordered permute gathers.
+//
+// Replaces no TPU kernel: kazen_tpu shades with XLA-fused elementwise code
+// (kazen_tpu/integrate/path_mis.py's bounce body), which the port's plain
+// PyTorch version runs as ~1,600 separate launches a bounce on the card.
+// Same contract as the plain version, integrate/path_mis.py:_shade_plain:
+// the hit's rows, the lane state after _shade_prologue and the bounce's
+// seven uniforms -> the (n, 24) float columns [p, nee_wi, smaxt, pd, li,
+// throughput, eta, accum, contrib, bsdf_pdf, discrete, alive], the light
+// pick and the hit cluster (int64, for path_mis.packet_key), and the
+// bounce's shadow-ray and path-ray counts. Per lane, in _bounce_ordered's
+// order: shade prep from the rows (closed-form u, v; Hanika's point; the
+// shading frame), the emitter hit with its MIS weight, Russian roulette,
+// NEE (uniform light pick, an area-light sample from the light's CDF, the
+// BSDF's eval and pdf, the power heuristic, the shadow ray's maxt), the
+// roughness regularization and the BSDF sample.
+//
+// The design answers what the plain version spends: every BSDF type's
+// branch on every lane, each op a launch with its operands in device
+// memory. Here a lane branches on its own material type and evaluates only
+// its own lobe, and its intermediates stay in registers: a lane reads its
+// rows (34 floats), its state and uniforms (~25 floats) and writes 24
+// floats and two int64, about 330 bytes, so device-memory bytes bound it
+// (0.20 ms at 2.07 M lanes and 3.35 TB/s; lab/shade_check.py:lane_bytes);
+// the tables (materials, light triangles, the light CDF) are a few KB and
+// stay in L1/L2. It runs at ~27% of that bound (0.74 ms a con-2 launch):
+// a lane's chain of IEEE divisions, square roots and sin/cos, and the
+// warp's lanes on other lobes, hold it, at 96 registers.
+//
+// Bit for bit with the plain version on the card. Built with -fmad=false,
+// so every product and sum rounds on its own, as PyTorch's separate ops do;
+// the code keeps the plain version's order of operations (including the
+// left-to-right association of every Python expression), its f32 constants
+// (each Python float rounded once to f32, as a scalar operand is), its
+// NaN-propagating clamp and max, and the reciprocal that `1.0 / x` is.
+// A 3-vector dot product (`(a * b).sum(-1)`) is a reduction whose order
+// PyTorch's CUDA reduce picks from the product's memory layout: over the
+// fastest dimension two threads add (x0 + x2) + x1; over a strided one a
+// thread adds (x0 + x1) + x2; each starts from +0, so a zero sum is +0.
+// DOT_A and DOT_B are those two orders, and each call site takes the one its
+// operands' layout gives in the plain version (the hit's trace rows are
+// transposed views, so the shade prep's products are strided; vectors made
+// with torch.stack are not). The one site whose layout depends on an input,
+// to_local(-ray_d), takes it from the wrapper (wi_order_b).
+//
+// Not used, and why: shared memory (the tables are read through the cache
+// and each lane reads its own rows once); warp-level material sorting (the
+// lanes arrive in the permute's packet order, which groups clusters, and so
+// mostly materials, already); tensor cores (f32 bit-exact contract).
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+// Field for field the ctypes structure _Params of shade/bounce_kernel.py.
+struct Params {
+  const float* rows;  // (40, n) K1's rows, a row every rows_s floats
+  long long rows_s;
+  const float* ray_o;
+  long long o_sl, o_sc;  // element strides: lane, component
+  const float* ray_d;
+  long long d_sl, d_sc;
+  const float* li;
+  long long li_sl, li_sc;
+  const float* thr;
+  long long thr_sl, thr_sc;
+  const float* eta;
+  long long eta_s;
+  const float* bsdf_pdf;
+  long long pdf_s;
+  const float* accum;
+  long long acc_s;
+  const unsigned char* alive;     // (n,) bool
+  const unsigned char* discrete;  // (n,) bool
+  const float* u_rr;    // (n,), unused without RR
+  const float* u_pick;  // (n,) x4, unused without lights
+  const float* u_tri;
+  const float* u_a;
+  const float* u_b;
+  const float* s1;  // (n,)
+  const float* s2;  // (n, 2)
+  const float* mats;   // (M, 16)
+  const float* ltris;  // (Lr * maxlf, 18) [p0 p1 p2 n0 n1 n2]
+  const float* linfo;  // (Lr, 8) [radiance 3, inv_area, has_n]
+  const float* lcdf;   // (Lr, maxlf + 1)
+  float* out;          // (n, 24)
+  long long* pick;     // (n,)
+  long long* cluster;  // (n,)
+  unsigned long long* counts;  // (2,) += shadow rays, path rays
+  int n, L, maxlf, n_strat, draw_rr, regularization, wi_order_b;
+  float trace_bias, acc_scale;
+};
+
+namespace {
+
+constexpr int THREADS = 128;
+constexpr int OUT_COLS = 24;
+constexpr int LTRI_F = 18;
+constexpr int LINFO_F = 8;
+constexpr int MAT_F = 16;
+constexpr double PI_D = 3.14159265358979323846;
+// Python floats as PyTorch hands them to a kernel: rounded once to f32
+constexpr float INV_PI = (float)(1.0 / PI_D);
+constexpr float PI_F = (float)PI_D;
+constexpr float TWO_PI = (float)(2.0 * PI_D);
+constexpr float PI_4 = (float)(PI_D / 4.0);
+constexpr float PI_2 = (float)(PI_D / 2.0);
+
+enum { DIFFUSE = 0, DIELECTRIC = 1, MIRROR = 2, LAMBERTIAN = 3, GGX = 4, KISS = 8 };
+
+// ---------------------------------------------------------------------------
+// scalars with PyTorch's semantics
+// ---------------------------------------------------------------------------
+
+// torch.clamp(x, min=lo) / (max=hi) / (lo, hi): NaN stays NaN
+__device__ __forceinline__ float clamp_lo(float x, float lo) {
+  return isnan(x) ? x : fmaxf(x, lo);
+}
+__device__ __forceinline__ float clamp_hi(float x, float hi) {
+  return isnan(x) ? x : fminf(x, hi);
+}
+__device__ __forceinline__ float clamp2(float x, float lo, float hi) {
+  return isnan(x) ? x : fminf(fmaxf(x, lo), hi);
+}
+// amax over a 3-vector: NaN propagates
+__device__ __forceinline__ float nanmax(float a, float b) {
+  return isnan(a) ? a : (isnan(b) ? b : fmaxf(a, b));
+}
+__device__ __forceinline__ float rcp(float x) { return 1.0f / x; }
+
+// ---------------------------------------------------------------------------
+// 3-vectors
+// ---------------------------------------------------------------------------
+
+struct V3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ V3 v3(float x, float y, float z) { return {x, y, z}; }
+__device__ __forceinline__ V3 add(V3 a, V3 b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
+__device__ __forceinline__ V3 sub(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
+__device__ __forceinline__ V3 mul(V3 a, V3 b) { return {a.x * b.x, a.y * b.y, a.z * b.z}; }
+__device__ __forceinline__ V3 scale(V3 a, float s) { return {a.x * s, a.y * s, a.z * s}; }
+__device__ __forceinline__ V3 divs(V3 a, float s) { return {a.x / s, a.y / s, a.z / s}; }
+__device__ __forceinline__ V3 neg(V3 a) { return {-a.x, -a.y, -a.z}; }
+__device__ __forceinline__ V3 sel(bool m, V3 a, V3 b) { return m ? a : b; }
+__device__ __forceinline__ V3 mask3(bool m, V3 a) { return m ? a : v3(0.0f, 0.0f, 0.0f); }
+__device__ __forceinline__ bool all_finite(V3 a) {
+  return isfinite(a.x) && isfinite(a.y) && isfinite(a.z);
+}
+__device__ __forceinline__ V3 cross(V3 a, V3 b) {
+  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
+}
+
+enum Order { DOT_A = 0, DOT_B = 1 };
+
+// (a * b).sum(-1) in the reduce order of the product's layout (see above)
+template <int O>
+__device__ __forceinline__ float dot(V3 a, V3 b) {
+  const float x0 = a.x * b.x, x1 = a.y * b.y, x2 = a.z * b.z;
+  return (O == DOT_A ? ((x0 + x2) + x1) : ((x0 + x1) + x2)) + 0.0f;
+}
+__device__ __forceinline__ float dot_o(bool b_order, V3 a, V3 b) {
+  return b_order ? dot<DOT_B>(a, b) : dot<DOT_A>(a, b);
+}
+// km.norm: sqrt(clamp(dot(v, v), min=1e-18))
+template <int O>
+__device__ __forceinline__ float norm(V3 v) {
+  return sqrtf(clamp_lo(dot<O>(v, v), (float)1e-18));
+}
+// km.normalize: v / clamp(norm(v), min=1e-9)
+template <int O>
+__device__ __forceinline__ V3 normalize(V3 v) {
+  return divs(v, clamp_lo(norm<O>(v), (float)1e-9));
+}
+
+struct Frame {
+  V3 s, t, n;
+};
+
+// Frame.to_local(v): each dot takes v's layout
+__device__ __forceinline__ V3 to_local(bool b_order, const Frame& f, V3 v) {
+  return {dot_o(b_order, v, f.s), dot_o(b_order, v, f.t), dot_o(b_order, v, f.n)};
+}
+// Frame.to_world(v): s * v.x + t * v.y + n * v.z
+__device__ __forceinline__ V3 to_world(const Frame& f, V3 v) {
+  return add(add(scale(f.s, v.x), scale(f.t, v.y)), scale(f.n, v.z));
+}
+
+// km.coordinate_system: (b, c) with b = c x a
+__device__ __forceinline__ void coordinate_system(V3 a, V3& b, V3& c) {
+  const bool use_x = fabsf(a.x) > fabsf(a.y);
+  const float inv_len_x = rcp(sqrtf((a.x * a.x + a.z * a.z) + (float)1e-30));
+  const float inv_len_y = rcp(sqrtf((a.y * a.y + a.z * a.z) + (float)1e-30));
+  c = use_x ? v3(a.z * inv_len_x, 0.0f, -a.x * inv_len_x)
+            : v3(0.0f, a.z * inv_len_y, -a.y * inv_len_y);
+  b = cross(c, a);
+}
+
+// km.reflect(wi, n): 2 (wi . n) n - wi
+__device__ __forceinline__ V3 reflect(V3 wi, V3 n) {
+  return sub(scale(n, 2.0f * dot<DOT_A>(wi, n)), wi);
+}
+
+// path_mis.power_heuristic
+__device__ __forceinline__ float power_heuristic(float a, float b) {
+  const float a2 = a * a;
+  const float b2 = b * b;
+  const bool ok = a2 > 0.0f;
+  return ok ? a2 / (ok ? a2 + b2 : 1.0f) : 0.0f;
+}
+
+// ---------------------------------------------------------------------------
+// warps and Fresnel (core/warp.py, core/math.py)
+// ---------------------------------------------------------------------------
+
+__device__ V3 cosine_hemisphere(float s0, float s1) {
+  const float r1 = 2.0f * s0 - 1.0f;
+  const float r2 = 2.0f * s1 - 1.0f;
+  const bool use_r1 = r1 * r1 > r2 * r2;
+  float r = use_r1 ? r1 : r2;
+  const float safe_r1 = r1 == 0.0f ? 1.0f : r1;
+  const float safe_r2 = r2 == 0.0f ? 1.0f : r2;
+  float phi = use_r1 ? PI_4 * (r2 / safe_r1) : PI_2 - (r1 / safe_r2) * PI_4;
+  const bool degen = r1 == 0.0f && r2 == 0.0f;
+  r = degen ? 0.0f : r;
+  phi = degen ? 0.0f : phi;
+  const float px = r * cosf(phi);
+  const float py = r * sinf(phi);
+  float z = sqrtf(clamp_lo((1.0f - px * px) - py * py, 0.0f));
+  z = z == 0.0f ? (float)1e-10 : z;
+  return {px, py, z};
+}
+
+// km.fresnel: unpolarized dielectric reflectance
+__device__ float fresnel(float cos_i, float ext_ior, float int_ior) {
+  const bool enter = cos_i >= 0.0f;
+  const float eta_i = enter ? ext_ior : int_ior;
+  const float eta_t = enter ? int_ior : ext_ior;
+  const float ci = fabsf(cos_i);
+  const float eta = eta_i / eta_t;
+  const float sin_t2 = (eta * eta) * (1.0f - ci * ci);
+  const bool ok = sin_t2 < 1.0f;
+  const float ct = sqrtf(ok ? 1.0f - sin_t2 : 1.0f);
+  const float rs = (eta_i * ci - eta_t * ct) / (eta_i * ci + eta_t * ct);
+  const float rp = (eta_t * ci - eta_i * ct) / (eta_t * ci + eta_i * ct);
+  const float f = ok ? 0.5f * (rs * rs + rp * rp) : 1.0f;
+  return ext_ior == int_ior ? 0.0f : f;
+}
+
+// km.refract(wi, n, eta); wi here is -wi_local (a stacked vector: DOT_A)
+__device__ V3 refract(V3 wi, V3 n, float eta) {
+  const float cos_i = dot<DOT_A>(wi, n);
+  const float eta_eff = cos_i < 0.0f ? rcp(eta) : eta;
+  const float cos_t2 = 1.0f - (1.0f - cos_i * cos_i) * (eta_eff * eta_eff);
+  const float sign = cos_i >= 0.0f ? 1.0f : -1.0f;
+  const bool ok = cos_t2 > 0.0f;
+  const float ct = sqrtf(ok ? cos_t2 : 1.0f);
+  const float k = (-cos_i) * eta_eff + sign * ct;
+  const V3 wt = add(scale(n, k), scale(wi, eta_eff));
+  return mask3(ok, wt);
+}
+
+// ---------------------------------------------------------------------------
+// GGX-Smith (shade/ggx.py); every product here is of stacked vectors: DOT_A
+// ---------------------------------------------------------------------------
+
+struct Mat {
+  int btype;
+  V3 base;
+  float metallic, roughness, aniso, specular, spec_tint, clearcoat, cc_rough, sheen,
+      sheen_tint, int_ior, ext_ior;
+};
+
+__device__ __forceinline__ Mat load_mat(const float* mats, long long m) {
+  const float* r = mats + m * MAT_F;
+  Mat mp;
+  mp.btype = (int)r[0];
+  mp.base = v3(r[1], r[2], r[3]);
+  mp.metallic = r[4];
+  mp.roughness = r[5];
+  mp.aniso = r[6];
+  mp.specular = r[7];
+  mp.spec_tint = r[8];
+  mp.clearcoat = r[9];
+  mp.cc_rough = r[10];
+  mp.sheen = r[11];
+  mp.sheen_tint = r[12];
+  mp.int_ior = r[13];
+  mp.ext_ior = r[14];
+  return mp;
+}
+
+// roughness_to_alpha: clamp(r^2, min=1e-3) * (1 +- a)
+__device__ __forceinline__ void r2a(float roughness, float aniso, float& ax, float& ay) {
+  const float a = clamp_lo(roughness * roughness, (float)1e-3);
+  ax = a * (1.0f + aniso);
+  ay = a * (1.0f - aniso);
+}
+
+__device__ __forceinline__ float smith_lambda(V3 v, float ax, float ay) {
+  const float vz2 = clamp_lo(v.z * v.z, (float)1e-9);
+  const float sq = ((ax * ax) * (v.x * v.x) + (ay * ay) * (v.y * v.y)) / vz2;
+  return (sqrtf(sq + 1.0f) + -1.0f) * 0.5f;
+}
+
+__device__ __forceinline__ float smith_g1(V3 v, V3 h, float ax, float ay) {
+  const float g = rcp(1.0f + smith_lambda(v, ax, ay));
+  return dot<DOT_A>(v, h) <= 0.0f ? 0.0f : g;
+}
+
+__device__ __forceinline__ float smith_g2(V3 v, V3 l, V3 h, float ax, float ay) {
+  const float g = rcp((1.0f + smith_lambda(v, ax, ay)) + smith_lambda(l, ax, ay));
+  return (dot<DOT_A>(v, h) <= 0.0f || dot<DOT_A>(l, h) < 0.0f) ? 0.0f : g;
+}
+
+__device__ __forceinline__ float ggx_ndf(V3 h, float ax, float ay) {
+  const float ell = ((h.x * h.x) / (ax * ax) + (h.y * h.y) / (ay * ay)) + h.z * h.z;
+  return rcp(((PI_F * ax) * ay) * (ell * ell));
+}
+
+__device__ __forceinline__ float vndf(V3 v, V3 h, float ax, float ay) {
+  const float vdoth = dot<DOT_A>(v, h);
+  const float d = ggx_ndf(h, ax, ay);
+  const float g1 = smith_g1(v, h, ax, ay);
+  const float vz = v.z == 0.0f ? (float)1e-9 : v.z;
+  const float val = ((d * g1) * vdoth) / vz;
+  return vdoth <= 0.0f ? 0.0f : val;
+}
+
+// sample_vndf (Heitz 2018)
+__device__ V3 sample_vndf(V3 v, float ax, float ay, float u0, float u1) {
+  const V3 vh = normalize<DOT_A>(v3(ax * v.x, ay * v.y, v.z));
+  const float lensq = vh.x * vh.x + vh.y * vh.y;
+  const float inv_len = rcp(sqrtf(clamp_lo(lensq, (float)1e-9)));
+  const V3 t1 = lensq > 0.0f ? v3(-vh.y * inv_len, vh.x * inv_len, 0.0f)
+                             : v3(1.0f, 0.0f, 0.0f);
+  const V3 t2 = normalize<DOT_A>(cross(vh, t1));
+  const float r = sqrtf(u0);
+  const float phi = TWO_PI * u1;
+  const float p1 = r * cosf(phi);
+  float p2 = r * sinf(phi);
+  const float s = 0.5f * (1.0f + vh.z);
+  p2 = (1.0f - s) * sqrtf(clamp_lo(1.0f - p1 * p1, 0.0f)) + s * p2;
+  const float pz = sqrtf(clamp_lo((1.0f - p1 * p1) - p2 * p2, 0.0f));
+  const V3 nh = add(add(scale(t1, p1), scale(t2, p2)), scale(vh, pz));
+  return normalize<DOT_A>(v3(ax * nh.x, ay * nh.y, clamp_lo(nh.z, (float)1e-6)));
+}
+
+// schlick_fresnel(f0, cos): f0 + (1 - f0) pow(clamp(1 - cos, 0, 1), 5)
+__device__ __forceinline__ V3 schlick3(V3 f0, float cos_theta) {
+  const float w = powf(clamp2(1.0f - cos_theta, 0.0f, 1.0f), 5.0f);
+  return {f0.x + (1.0f - f0.x) * w, f0.y + (1.0f - f0.y) * w, f0.z + (1.0f - f0.z) * w};
+}
+
+// eval_ggx_smith_brdf's brdf (h given: the caller's normalize(v + l))
+__device__ __forceinline__ V3 ggx_smith_brdf(V3 v, V3 l, V3 h, V3 f0, float ax, float ay) {
+  const float d = ggx_ndf(h, ax, ay);
+  const float g = smith_g2(v, l, h, ax, ay);
+  const V3 f = schlick3(f0, dot<DOT_A>(v, h));
+  const float denom = (4.0f * fabsf(v.z)) * fabsf(l.z);
+  const V3 brdf = scale(f, (d * g) / clamp_lo(denom, (float)1e-9));
+  return mask3(!(v.z * l.z < 0.0f), brdf);
+}
+
+// ---------------------------------------------------------------------------
+// BSDFs (shade/bsdf.py), local frame; each lane runs its own type only
+// ---------------------------------------------------------------------------
+
+// _ggx_eval and _ggx_pdf
+__device__ void ggx_eval_pdf(const Mat& mp, V3 wi, V3 wo, V3& f, float& pdf) {
+  float ax, ay;
+  r2a(mp.roughness, mp.aniso, ax, ay);
+  const V3 h = normalize<DOT_A>(add(wi, wo));
+  const bool m = wi.z > 0.0f && wo.z > 0.0f;
+  const V3 brdf = ggx_smith_brdf(wi, wo, h, mp.base, ax, ay);
+  f = mask3(m, scale(brdf, wo.z));
+  const float denom = 4.0f * dot<DOT_A>(wi, h);
+  const float p = vndf(wi, h, ax, ay) / (denom == 0.0f ? (float)1e-9 : denom);
+  pdf = m ? p : 0.0f;
+}
+
+__device__ __forceinline__ float schlick_weight(float x) {
+  x = clamp2(1.0f - x, 0.0f, 1.0f);
+  return ((x * x) * (x * x)) * x;
+}
+
+// km.lerp(t, a, b) = (1 - t) a + t b
+__device__ __forceinline__ float lerp(float t, float a, float b) {
+  return (1.0f - t) * a + t * b;
+}
+
+// _kiss_eval_pdf (= _kiss_eval and _kiss_pdf, which share its arithmetic)
+__device__ void kiss_eval_pdf(const Mat& mp, V3 v, V3 l, float accum, V3& f_out,
+                              float& pdf_out) {
+  const V3 h = normalize<DOT_A>(add(v, l));
+  const V3 cdlin = mp.base;
+  const float metallic = mp.metallic;
+  const float roughness = clamp_hi(mp.roughness + accum, 1.0f);
+  float ax, ay, cax, cay, pax, pay;
+  r2a(roughness, mp.aniso, ax, ay);
+  const float cc_rough = lerp(mp.cc_rough, (float)0.01, (float)0.3);
+  r2a(cc_rough, mp.aniso, cax, cay);
+  r2a(cc_rough, 0.0f, pax, pay);
+
+  const float cdlum =
+      (cdlin.x * (float)0.212671 + cdlin.y * (float)0.715160) + cdlin.z * (float)0.072169;
+  const bool pos = cdlum > 0.0f;
+  const float lum = clamp_lo(cdlum, (float)1e-9);
+  const V3 ctint = pos ? divs(cdlin, lum) : v3(1.0f, 1.0f, 1.0f);
+  const float spec08 = (float)0.08 * mp.specular;
+  const float st = mp.spec_tint;
+  const V3 ctintmix = v3(spec08 * ((1.0f - st) * 1.0f + st * ctint.x),
+                         spec08 * ((1.0f - st) * 1.0f + st * ctint.y),
+                         spec08 * ((1.0f - st) * 1.0f + st * ctint.z));
+  const V3 cspec0 = v3(lerp(metallic, ctintmix.x, cdlin.x), lerp(metallic, ctintmix.y, cdlin.y),
+                       lerp(metallic, ctintmix.z, cdlin.z));
+  const float fl = schlick_weight(l.z);
+  const float fv = schlick_weight(v.z);
+  const float fh = schlick_weight(dot<DOT_A>(l, h));
+  const float cos_d = dot<DOT_A>(v, h);
+  const float lambert = (1.0f - 0.5f * fl) * (1.0f - 0.5f * fv);
+  const float rr = ((2.0f * roughness) * cos_d) * cos_d;
+  const float retro = rr * ((fl + fv) + (fl * fv) * (rr - 1.0f));
+  const float sht = mp.sheen_tint;
+  const float fhs = fh * mp.sheen;
+  const V3 fsheen = v3(fhs * ((1.0f - sht) * 1.0f + sht * ctint.x),
+                       fhs * ((1.0f - sht) * 1.0f + sht * ctint.y),
+                       fhs * ((1.0f - sht) * 1.0f + sht * ctint.z));
+
+  const float denom = clamp_lo((4.0f * fabsf(v.z)) * fabsf(l.z), (float)1e-9);
+  const bool opp = v.z * l.z < 0.0f;
+  const float dg_spec = (ggx_ndf(h, ax, ay) * smith_g2(v, l, h, ax, ay)) / denom;
+  const V3 spec = mask3(!opp, scale(schlick3(cspec0, cos_d), dg_spec));
+  const float dg_cc = (ggx_ndf(h, cax, cay) * smith_g2(v, l, h, cax, cay)) / denom;
+  const float f04 = (float)0.04;
+  const V3 cc = mask3(!opp, scale(schlick3(v3(f04, f04, f04), cos_d), dg_cc));
+  const float cc_w = 0.25f * mp.clearcoat;
+  const float kd = INV_PI * (lambert + retro);
+  const float one_m = 1.0f - metallic;
+  const V3 val = v3(
+      ((one_m * (cdlin.x * kd + fsheen.x) + spec.x) + cc_w * cc.x) * l.z,
+      ((one_m * (cdlin.y * kd + fsheen.y) + spec.y) + cc_w * cc.y) * l.z,
+      ((one_m * (cdlin.z * kd + fsheen.z) + spec.z) + cc_w * cc.z) * l.z);
+
+  const float diffuse_p = one_m * 0.5f;
+  const float gtr2 = rcp(mp.clearcoat + 1.0f);
+  float jac = 4.0f * dot<DOT_A>(v, h);
+  jac = jac == 0.0f ? (float)1e-9 : jac;
+  const float spec_pdf = vndf(v, h, ax, ay) / jac;
+  const float coat_pdf = vndf(v, h, pax, pay) / jac;
+  const float pdf = (diffuse_p * INV_PI) * l.z +
+                    (1.0f - diffuse_p) * (gtr2 * spec_pdf + (1.0f - gtr2) * coat_pdf);
+  const bool m = v.z > 0.0f && l.z > 0.0f;
+  f_out = mask3(m, val);
+  pdf_out = m ? pdf : 0.0f;
+}
+
+// eval_pdf_base: (f * cos, pdf) of the lane's own type
+__device__ void bsdf_eval_pdf(const Mat& mp, V3 wi, V3 wo, float accum, V3& f, float& pdf) {
+  switch (mp.btype) {
+    case DIFFUSE:
+    case LAMBERTIAN: {
+      const bool m = wi.z > 0.0f && wo.z > 0.0f;
+      const float k = INV_PI * wo.z;
+      f = mask3(m, scale(mp.base, k));
+      pdf = m ? k : 0.0f;
+      return;
+    }
+    case GGX:
+      ggx_eval_pdf(mp, wi, wo, f, pdf);
+      return;
+    case KISS:
+      kiss_eval_pdf(mp, wi, wo, accum, f, pdf);
+      return;
+    default:  // mirror, dielectric: discrete lobes
+      f = v3(0.0f, 0.0f, 0.0f);
+      pdf = 0.0f;
+  }
+}
+
+struct Sample {
+  V3 wo, w;
+  float eta, pdf;
+  bool disc;
+};
+
+__device__ Sample bsdf_sample(const Mat& mp, V3 wi, float s1, float s2a, float s2b,
+                              float accum) {
+  Sample r;
+  r.eta = 1.0f;
+  r.pdf = 0.0f;
+  r.disc = false;
+  switch (mp.btype) {
+    case DIFFUSE:
+    case LAMBERTIAN:
+      r.wo = cosine_hemisphere(s2a, s2b);
+      r.w = mask3(wi.z > 0.0f, mp.base);
+      r.pdf = (wi.z > 0.0f && r.wo.z > 0.0f) ? INV_PI * r.wo.z : 0.0f;
+      break;
+    case MIRROR:
+      r.wo = v3(-wi.x, -wi.y, wi.z);
+      r.w = mask3(wi.z > 0.0f, v3(1.0f, 1.0f, 1.0f));
+      r.disc = true;
+      break;
+    case DIELECTRIC: {
+      const float cos_i = wi.z;
+      const float fr = fresnel(cos_i, mp.ext_ior, mp.int_ior);
+      const bool outside = cos_i >= 0.0f;
+      const V3 n = v3(0.0f, 0.0f, outside ? 1.0f : -1.0f);
+      const float factor = outside ? mp.int_ior / mp.ext_ior : mp.ext_ior / mp.int_ior;
+      const V3 refracted = refract(neg(wi), n, factor);
+      const bool reflect_it = s1 < fr;
+      r.wo = reflect_it ? v3(-wi.x, -wi.y, wi.z) : refracted;
+      r.eta = reflect_it ? 1.0f : mp.int_ior / mp.ext_ior;
+      r.w = v3(1.0f, 1.0f, 1.0f);
+      r.disc = true;
+      break;
+    }
+    case GGX: {
+      float ax, ay;
+      r2a(mp.roughness, mp.aniso, ax, ay);
+      r.wo = reflect(wi, sample_vndf(wi, ax, ay, s2a, s2b));
+      V3 val;
+      ggx_eval_pdf(mp, wi, r.wo, val, r.pdf);
+      const V3 w = divs(val, clamp_lo(r.pdf, (float)1e-9));
+      r.w = mask3(wi.z > 0.0f && r.wo.z > 0.0f && r.pdf > 0.0f, w);
+      break;
+    }
+    case KISS: {
+      const float diffuse = (1.0f - mp.metallic) * 0.5f;
+      const float gtr2 = rcp(mp.clearcoat + 1.0f);
+      const V3 wo_diff = cosine_hemisphere(s2a, s2b);
+      const float s_rescaled = (s1 - diffuse) / clamp_lo(1.0f - diffuse, (float)1e-9);
+      const bool flip = wi.z <= 0.0f;
+      const V3 wi_f = flip ? neg(wi) : wi;
+      float sax, say, cax, cay;
+      r2a(mp.roughness, mp.aniso, sax, say);
+      r2a(lerp(mp.cc_rough, (float)0.01, (float)0.3), 0.0f, cax, cay);
+      const bool use_spec = s_rescaled < gtr2;
+      V3 h = sample_vndf(wi_f, use_spec ? sax : cax, use_spec ? say : cay, s2a, s2b);
+      h = flip ? neg(h) : h;
+      const V3 wo_spec = normalize<DOT_A>(reflect(wi, h));
+      r.wo = s1 < diffuse ? wo_diff : wo_spec;
+      V3 val;
+      kiss_eval_pdf(mp, wi, r.wo, accum, val, r.pdf);
+      V3 w = divs(val, clamp_lo(r.pdf, (float)1e-9));
+      const bool ok = wi.z > 0.0f && r.wo.z > 0.0f && r.pdf > (float)1e-4 && all_finite(r.wo);
+      w = v3(isfinite(w.x) ? w.x : 0.0f, isfinite(w.y) ? w.y : 0.0f,
+             isfinite(w.z) ? w.z : 0.0f);
+      r.w = mask3(ok, w);
+      break;
+    }
+    default:  // outside the kernel's class (supported_reason keeps it out)
+      r.wo = v3(0.0f, 0.0f, 0.0f);
+      r.w = v3(0.0f, 0.0f, 0.0f);
+  }
+  return r;
+}
+
+// ---------------------------------------------------------------------------
+// the stage
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ V3 ld(const float* p, long long i, long long sl, long long sc) {
+  const float* q = p + i * sl;
+  return {q[0], q[sc], q[2 * sc]};
+}
+
+__global__ void __launch_bounds__(THREADS) shade_kernel(const Params p) {
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const bool active = i < p.n;
+  bool shadow = false, alive_out = false;
+  if (active) {
+    const float* rows = p.rows;
+#define R(r) rows[(long long)(r) * p.rows_s + i]
+    // (1) the hit: prepare_from_rows (shade/interaction.py)
+    const bool valid = R(3) >= 0.0f;
+    const V3 p0 = v3(R(4), R(5), R(6)), p1 = v3(R(7), R(8), R(9)), p2 = v3(R(10), R(11), R(12));
+    const V3 n0 = v3(R(13), R(14), R(15)), n1 = v3(R(16), R(17), R(18)),
+             n2 = v3(R(19), R(20), R(21));
+    const float uv0x = R(22), uv0y = R(23), uv1x = R(24), uv1y = R(25), uv2x = R(26),
+                uv2y = R(27);
+    const long long light = (long long)(valid ? R(28) : -1.0f);
+    const long long material = (long long)R(30);
+    const bool has_n = R(31) > 0.0f;
+    const bool has_uv = R(32) > 0.0f;
+    const long long cluster = (long long)R(33);
+#undef R
+    const V3 o = ld(p.ray_o, i, p.o_sl, p.o_sc);
+    const V3 d = ld(p.ray_d, i, p.d_sl, p.d_sc);
+    // Moller-Trumbore's (u, v) against the chosen face (accel/intersect.py)
+    const V3 e1 = sub(p1, p0), e2 = sub(p2, p0);
+    const float pvx = d.y * e2.z - d.z * e2.y;
+    const float pvy = d.z * e2.x - d.x * e2.z;
+    const float pvz = d.x * e2.y - d.y * e2.x;
+    const float det = (e1.x * pvx + e1.y * pvy) + e1.z * pvz;
+    const bool det_ok = fabsf(det) > (float)1e-8;
+    const float inv_det = rcp(det_ok ? det : 1.0f);
+    const V3 tv = sub(o, p0);
+    const float u = ((tv.x * pvx + tv.y * pvy) + tv.z * pvz) * inv_det;
+    const float qvx = tv.y * e1.z - tv.z * e1.y;
+    const float qvy = tv.z * e1.x - tv.x * e1.z;
+    const float qvz = tv.x * e1.y - tv.y * e1.x;
+    const float v = ((d.x * qvx + d.y * qvy) + d.z * qvz) * inv_det;
+    // _prepare_core: Hanika's point, the shading frame
+    const float b0 = (1.0f - u) - v, b1 = u, b2 = v;
+    const V3 orig_p = add(add(scale(p0, b0), scale(p1, b1)), scale(p2, b2));
+    V3 tu = sub(orig_p, p0), tw_v = sub(orig_p, p1), tw = sub(orig_p, p2);
+    tu = sub(tu, scale(n0, clamp_hi(dot<DOT_B>(tu, n0), 0.0f)));
+    tw_v = sub(tw_v, scale(n1, clamp_hi(dot<DOT_B>(tw_v, n1), 0.0f)));
+    tw = sub(tw, scale(n2, clamp_hi(dot<DOT_B>(tw, n2), 0.0f)));
+    const V3 p_h = add(add(add(orig_p, scale(tu, b0)), scale(tw_v, b1)), scale(tw, b2));
+    const V3 hp = has_n ? p_h : orig_p;
+    const V3 dp0 = e1, dp1 = e2;
+    const V3 cr = cross(dp0, dp1);
+    const V3 gn = normalize<DOT_A>(cr);
+    const V3 sh_normal = add(add(scale(n0, b0), scale(n1, b1)), scale(n2, b2));
+    const V3 sh_n = normalize<DOT_B>(sh_normal);
+    const float duv0x = uv1x - uv0x, duv0y = uv1y - uv0y;
+    const float duv1x = uv2x - uv0x, duv1y = uv2y - uv0y;
+    const float determinant = duv0x * duv1y - duv0y * duv1x;
+    const float cross_len = norm<DOT_A>(cr);
+    const bool uv_ok = has_n && has_uv && cross_len > 0.0f && determinant > 0.0f;
+    const float inv_d = rcp(determinant != 0.0f ? determinant : 1.0f);
+    const V3 dpdu = scale(sub(scale(dp0, duv1y), scale(dp1, duv0y)), inv_d);
+    const V3 s_uv = normalize<DOT_B>(sub(dpdu, scale(sh_normal, dot<DOT_B>(sh_normal, dpdu))));
+    const V3 t_uv = normalize<DOT_A>(cross(sh_n, s_uv));
+    const V3 n_fb = has_n ? sh_n : gn;
+    V3 fb_s, fb_t;
+    coordinate_system(n_fb, fb_s, fb_t);
+    Frame fr;
+    fr.s = sel(uv_ok, s_uv, fb_s);
+    fr.t = sel(uv_ok, t_uv, fb_t);
+    fr.n = sel(uv_ok, sh_n, n_fb);
+    const Mat mp = load_mat(p.mats, material);
+    const V3 wi_local = to_local(p.wi_order_b != 0, fr, neg(d));
+
+    V3 li = ld(p.li, i, p.li_sl, p.li_sc);
+    V3 thr = ld(p.thr, i, p.thr_sl, p.thr_sc);
+    float eta = p.eta[i * p.eta_s];
+    float accum = p.accum[i * p.acc_s];
+    bool alive = p.alive[i] != 0;
+
+    // (2) emitter hit: the light's eval and pdf at the hit, MIS from the
+    // carried (bsdf_pdf, discrete); the lane ends on a light
+    {
+      const long long lidx = light < 0 ? 0 : light;
+      const float* lin = p.linfo + lidx * LINFO_F;
+      const V3 to_p = sub(hp, o);
+      const float dist = norm<DOT_B>(to_p);
+      const V3 wi = divs(to_p, clamp_lo(dist, (float)1e-9));
+      const float cos_p = dot<DOT_B>(fr.n, neg(wi));
+      const float lpdf = cos_p > 0.0f
+                             ? (lin[3] * (dist * dist)) / clamp_lo(cos_p, (float)1e-9)
+                             : 0.0f;
+      const V3 wi_e = normalize<DOT_B>(sub(hp, o));
+      const float cos_e = dot<DOT_B>(fr.n, neg(wi_e));
+      const V3 le = cos_e > 0.0f ? v3(lin[0], lin[1], lin[2]) : v3(0.0f, 0.0f, 0.0f);
+      const float bw = p.discrete[i] ? 1.0f : power_heuristic(p.bsdf_pdf[i * p.pdf_s], lpdf);
+      const bool hit_light = alive && light >= 0;
+      li = add(li, mask3(hit_light, mul(scale(thr, bw), le)));
+      alive = alive && !hit_light;
+    }
+
+    // (3) Russian roulette
+    if (p.draw_rr) {
+      const float prob =
+          clamp_hi((nanmax(nanmax(thr.x, thr.y), thr.z) * eta) * eta, (float)0.95);
+      alive = alive && !(prob <= p.u_rr[i]);
+      thr = scale(thr, alive ? rcp(clamp_lo(prob, (float)1e-9)) : 1.0f);
+    }
+
+    // (4) NEE: uniform pick, area-light sample, the BSDF's eval and pdf
+    long long pick = 0;
+    V3 nee_wi = d;
+    V3 contrib = v3(0.0f, 0.0f, 0.0f);
+    float smaxt = -1.0f;
+    if (p.n_strat > 0) {
+      long long k = (long long)floorf((float)p.n_strat * p.u_pick[i]);
+      pick = k < 0 ? 0 : (k > p.n_strat - 1 ? p.n_strat - 1 : k);
+      const long long l = pick > p.L - 1 ? p.L - 1 : pick;
+      const float* cdf = p.lcdf + l * (p.maxlf + 1);
+      const float ut = p.u_tri[i];
+      int tri = 0;
+      for (int j = 1; j < p.maxlf; ++j) tri += ut >= cdf[j] ? 1 : 0;
+      tri = tri > p.maxlf - 1 ? p.maxlf - 1 : tri;
+      const float su0 = sqrtf(p.u_a[i]);
+      const float lu = 1.0f - su0;
+      const float lv = p.u_b[i] * su0;
+      const float* t = p.ltris + (l * p.maxlf + tri) * LTRI_F;
+      const V3 q0 = v3(t[0], t[1], t[2]), q1 = v3(t[3], t[4], t[5]), q2 = v3(t[6], t[7], t[8]);
+      const V3 m0 = v3(t[9], t[10], t[11]), m1 = v3(t[12], t[13], t[14]),
+               m2 = v3(t[15], t[16], t[17]);
+      const V3 lp = add(add(q0, scale(sub(q1, q0), lu)), scale(sub(q2, q0), lv));
+      const float* lin = p.linfo + l * LINFO_F;
+      const V3 n_interp = add(add(m0, scale(sub(m1, m0), lu)), scale(sub(m2, m0), lv));
+      const V3 n_geo = normalize<DOT_A>(cross(sub(q1, q0), sub(q2, q0)));
+      const V3 ln = lin[4] > 0.0f ? n_interp : n_geo;
+      const V3 to_light = sub(lp, hp);
+      const float dist = norm<DOT_A>(to_light);
+      const V3 wi = divs(to_light, clamp_lo(dist, (float)1e-9));
+      const float cosl = dot<DOT_A>(ln, neg(wi));
+      const float pdf =
+          cosl > 0.0f ? (lin[3] * (dist * dist)) / clamp_lo(cosl, (float)1e-9) : 0.0f;
+      const V3 rad = cosl > 0.0f ? v3(lin[0], lin[1], lin[2]) : v3(0.0f, 0.0f, 0.0f);
+      const bool lvalid = pdf > 0.0f && isfinite(pdf);
+      const V3 ls = mask3(lvalid, divs(rad, clamp_lo(pdf, (float)1e-9)));
+      nee_wi = wi;
+      const float nee_maxt = dist - p.trace_bias;
+      const V3 wo_local = to_local(false, fr, nee_wi);
+      V3 f;
+      float pdf_b;
+      bsdf_eval_pdf(mp, wi_local, wo_local, accum, f, pdf_b);
+      const float w_light = power_heuristic(pdf, pdf_b);
+      contrib = mask3(alive, scale(mul(mul(thr, scale(ls, (float)p.n_strat)), f), w_light));
+      shadow = alive && (contrib.x != 0.0f || contrib.y != 0.0f || contrib.z != 0.0f);
+      smaxt = shadow ? nee_maxt : -1.0f;
+    }
+
+    // (5) roughness regularization: kiss returns its roughness, others 0
+    if (p.regularization) {
+      const float reg = mp.btype == KISS ? mp.roughness : 0.0f;
+      accum = alive ? accum + reg * p.acc_scale : accum;
+    }
+
+    // (6) BSDF sample
+    const Sample res = bsdf_sample(mp, wi_local, p.s1[i], p.s2[2 * i], p.s2[2 * i + 1], accum);
+    thr = alive ? mul(thr, res.w) : thr;
+    eta = alive ? eta * res.eta : eta;
+    alive = alive && (res.w.x > 0.0f || res.w.y > 0.0f || res.w.z > 0.0f);
+    const V3 pd = to_world(fr, res.wo);
+    alive_out = alive;
+
+    float* out = p.out + i * OUT_COLS;
+    const float cols[OUT_COLS] = {
+        hp.x, hp.y, hp.z, nee_wi.x, nee_wi.y, nee_wi.z, smaxt, pd.x, pd.y, pd.z,
+        li.x, li.y, li.z, thr.x, thr.y, thr.z, eta, accum, contrib.x, contrib.y, contrib.z,
+        res.pdf, res.disc ? 1.0f : 0.0f, alive ? 1.0f : 0.0f};
+#pragma unroll
+    for (int c = 0; c < OUT_COLS; ++c) out[c] = cols[c];
+    p.pick[i] = pick;
+    p.cluster[i] = cluster;
+  }
+  // the bounce's ray counts, one atomic a warp
+  const unsigned n_shadow = __popc(__ballot_sync(0xFFFFFFFFu, shadow));
+  const unsigned n_path = __popc(__ballot_sync(0xFFFFFFFFu, alive_out));
+  if ((threadIdx.x & 31) == 0) {
+    if (n_shadow) atomicAdd(p.counts, (unsigned long long)n_shadow);
+    if (n_path) atomicAdd(p.counts + 1, (unsigned long long)n_path);
+  }
+}
+
+}  // namespace
+
+extern "C" int kz_shade_bounce(const Params* prm, void* stream) {
+  if (prm->n <= 0) return 0;
+  const long long blocks = ((long long)prm->n + THREADS - 1) / THREADS;
+  shade_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(*prm);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* kz_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

@@ -15,7 +15,8 @@ can be put in its span by correlation id. A ``render.pass`` span on the
 card records a CUDA event at its start and end; nothing waits on them until
 ``collect()``, which makes the one synchronize and returns the spans and
 counters (host reads by site, material texture lookups by field and route,
-CUDA kernel launches, rays traced) and clears them. ``write_chrome_trace``
+bounces by shade route, CUDA kernel launches, rays traced) and clears
+them. ``write_chrome_trace``
 writes what ``collect()`` returned as a Chrome trace (the CLI's ``--trace
 FILE``). The tracer keeps one record for the
 process and is not thread-safe.
@@ -88,8 +89,8 @@ class Span:
 class _Record:
     """What the tracer recorded: the open spans' stack and, since tracing
     began or the last collect(), the closed spans, the host reads by site,
-    the texture lookups by field and route, the ray tensors and the
-    kernels' launch counts at the start."""
+    the texture lookups by field and route, the bounces by shade route, the
+    ray tensors and the kernels' launch counts at the start."""
 
     def __init__(self):
         self.offset_ns = time.time_ns() - time.perf_counter_ns()
@@ -98,6 +99,7 @@ class _Record:
         self.spans: List[Span] = []
         self.host_reads = {}
         self.texture_lookups = {}
+        self.shade_route = {}
         self.rays = []
         self.launches0 = _launch_counts()
 
@@ -206,6 +208,14 @@ def texture_lookup(field: str, route: str) -> None:
         by_route[route] += 1
 
 
+def shade_route(route: str) -> None:
+    """Count one bounce's shade stage by the route integrate/path_mis.py
+    took: "kernel" (shade/bounce_kernel.py's CUDA kernel) or "plain"
+    (path_mis._shade_plain)."""
+    if _on:
+        _rec.shade_route[route] = _rec.shade_route.get(route, 0) + 1
+
+
 def rays(nrays) -> None:
     """Keep a pass's ray count (a device tensor) for ``collect()``, which
     sums them once."""
@@ -223,11 +233,12 @@ def collect() -> dict:
     global _rec
     rec = _rec
     if rec is None:
-        return {"spans": [], "host_reads": {}, "texture_lookups": {}, "launches": {},
-                "rays": 0.0}
+        return {"spans": [], "host_reads": {}, "texture_lookups": {}, "shade_route": {},
+                "launches": {}, "rays": 0.0}
     spans, rec.spans = rec.spans, []
     reads, rec.host_reads = rec.host_reads, {}
     lookups, rec.texture_lookups = rec.texture_lookups, {}
+    routes, rec.shade_route = rec.shade_route, {}
     counts, rec.rays = rec.rays, []
     launches0, rec.launches0 = rec.launches0, _launch_counts()
     if not _on and not rec.stack:
@@ -240,7 +251,7 @@ def collect() -> dict:
                 if n != launches0.get(k, 0)}
     total = float(torch.stack([r.double() for r in counts]).sum()) if counts else 0.0
     return {"spans": spans, "host_reads": reads, "texture_lookups": lookups,
-            "launches": launches, "rays": total}
+            "shade_route": routes, "launches": launches, "rays": total}
 
 
 def write_chrome_trace(path: str, collected: dict) -> None:
@@ -259,6 +270,7 @@ def write_chrome_trace(path: str, collected: dict) -> None:
                        "args": args})
     other = {"clock": "unix", "host_reads": collected["host_reads"],
              "texture_lookups": collected["texture_lookups"],
+             "shade_route": collected["shade_route"],
              "launches": collected["launches"], "rays": collected["rays"]}
     with open(path, "w") as f:
         json.dump({"traceEvents": events, "displayTimeUnit": "ms", "otherData": other}, f,

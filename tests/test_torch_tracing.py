@@ -4,6 +4,7 @@ share their call's id and sit on torch.profiler's clock, the images stay bit
 for bit, and the host-read counter equals the reads it wraps. Then the
 arithmetic of lab/pass_split.py, which reads what the tracer collects."""
 import gc
+import json
 import statistics
 import sys
 
@@ -78,7 +79,7 @@ def test_tracer_off_records_and_touches_nothing(what, scenes, monkeypatch):
     run(what, scenes)
     monkeypatch.undo()
     assert metrics.collect() == {"spans": [], "host_reads": {}, "texture_lookups": {},
-                                 "launches": {}, "rays": 0.0}
+                                 "shade_route": {}, "launches": {}, "rays": 0.0}
 
 
 NESTING = {
@@ -286,6 +287,22 @@ def test_render_metrics_read_once_when_the_call_ends(scenes):
     assert [p.sample_index for p in m.passes] == [0, 1]
     assert all(p.seconds > 0 and p.lanes == SIZE * SIZE for p in m.passes)
     assert sum(p.rays for p in m.passes) == got["rays"] > len(passes) * SIZE * SIZE
+
+
+def test_shade_route_counts_each_bounce(scenes, tmp_path):
+    """The shade_route counter: on the CPU every bounce takes the plain
+    route, 5 a pass (depth 5, 2 passes); with the tracer off nothing is
+    counted; the Chrome trace carries it."""
+    arrays, static = scenes["pmj02bn"]
+    assert static.max_depth == 5
+    metrics.collect()
+    render_t.render(arrays, static, device="cpu")
+    assert metrics.collect()["shade_route"] == {}
+    _, got = traced(lambda: render_t.render(arrays, static, device="cpu"))
+    assert got["shade_route"] == {"plain": 5 * 2}
+    path = tmp_path / "trace.json"
+    metrics.write_chrome_trace(str(path), got)
+    assert json.loads(path.read_text())["otherData"]["shade_route"] == {"plain": 10}
 
 
 def span(name, sid, parent, start_ms, end_ms, device_ms=None, **attrs):
