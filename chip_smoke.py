@@ -7,7 +7,7 @@ kernels K1/K2 on the stand-in scene (36,876 faces), and the megakernel K3 on
 scenes of at most 128 faces (Mixed 1080p: the Cornell box with kiss, mirror,
 GGX, dielectric and lambertian quads, 22 faces, depth 5; Toy 1080p: the
 12-triangle diffuse/kiss box, depth 4). On the wavefront's kernels run also
-the staged driver, the pmj02bn sampler, the four debug integrators,
+the pmj02bn sampler, the four debug integrators,
 Textured 1080p (the stand-in with image textures, a normal map, the rough*
 models and an importance-sampled sky), inverse rendering (optimize), the
 XML/OBJ/PNG/EXR front end with checkpoints and the CLI, and dist/ on nccl.
@@ -66,13 +66,8 @@ Phases (each check raises; the script exits non-zero on the first failure):
    iterations), the one-lane-a-thread figure from row 5, and a check that the
    totals of rows 4 and 5 are equal across all of them.
 
-10. The staged driver (integrate/staged.py) on the stand-in at 1080p: a
-    sync-mode pass and a pipelined pass on the schedule the first one
-    planned (checked by ok()), each against li_wavefront's per-lane radiance
-    on the card; the widths and alive counts per bounce; pass ms of
-    li_wavefront's render() and of both modes in turns, device ms and
-    launches under torch.profiler. A width below the full one must be used,
-    and K1/K2 launched.
+10. (Absent: it ran the staged wavefront driver, which was retired; the
+    later phases keep their numbers.)
 11. pmj02bn on the stand-in: card against CPU at 64x36, one timed 1080p
     pass.
 12. The debug integrators normals, ao, whitted (depth 16, its cap) and
@@ -184,7 +179,7 @@ Phases (each check raises; the script exits non-zero on the first failure):
     (kernel on every bounce) and of config 3 and Textured render() passes
     and a con-2 optimize() step (plain on every bounce).
 
-Each of phases 10-22 logs its seconds, and the script its total. Phases
+Each of phases 11-22 logs its seconds, and the script its total. Phases
 17-22 can run alone after phase 0's builds (phase_lab, phase_measure,
 phase_baseline, phase_cliff, phase_ablate, phase_shade).
 Every comparison of radiance holds PERF.md's gate: per-lane radiance within
@@ -780,102 +775,6 @@ def full_pass(torch, scene, static, kernels, label, phase, smi, need, out_dir=No
             log(f"  {row['device_ms']:9.3f} ms {row['count']:6d}x  {row['name'][:90]}")
         out["profile"] = prof
     return out
-
-
-def staged_driver(torch, scene, static, spec):
-    """A StagedWavefront for full-grid render passes of ``scene``: stream
-    set-up and camera rays fold into its init, the splat into its finish;
-    a pass returns (image, per-lane li, rays traced)."""
-    from kazen_tpu_torch.film import film as film_mod
-    from kazen_tpu_torch.integrate import camera as camera_mod
-    from kazen_tpu_torch.integrate import path_mis as pm
-    from kazen_tpu_torch.integrate.render import pixel_grid
-    from kazen_tpu_torch.integrate.staged import StagedWavefront
-    from kazen_tpu_torch.samplers import streams
-
-    px, py = pixel_grid(static, scene.device)
-
-    def init_fn(sc, sample, jump):
-        stream = streams.init_stream_jump(spec, px, py, sample, jump)
-        stream, jitter = streams.next_pixel_2d(spec, stream)
-        stream, aperture = streams.next_2d(spec, stream)
-        ps = torch.stack([px, py], -1).to(torch.float32) + jitter
-        rays = camera_mod.sample_ray(sc, static, ps, aperture)
-        return pm.wavefront_init(sc, static, spec, stream, rays), jitter
-
-    def finish_fn(sc, st, jitter):
-        _, li, nrays = pm.wavefront_finish(sc, static, st)
-        film = film_mod.splat_grid(static, film_mod.make_film(static, sc.device), jitter, li)
-        return film_mod.to_bitmap(film), li, nrays
-
-    return StagedWavefront(static, px.shape[0], init_fn, finish_fn)
-
-
-def phase_staged(torch, scene, static, spec, wavefront_ms, wavefront_prof, kernels, out_dir,
-                 smi):
-    """Phase 10: one sync-mode and one pipelined staged pass of the stand-in
-    (the schedule from the sync pass's plan(), checked by ok()), each held
-    to PERF.md's gate against li_wavefront's pass on the card; the widths
-    and alive counts; pass ms of li_wavefront's render() and both staged
-    modes in turns, and each one's device ms and launches under
-    torch.profiler, beside phase 3's and phase 5's figures."""
-    from kazen_tpu_torch.core import rng
-    from kazen_tpu_torch.integrate.render import render
-
-    jump = rng.advance_constants(0)
-    sw = staged_driver(torch, scene, static, spec)
-    want = li_lanes(torch, scene, static)  # li_wavefront, sample pass 0
-    for k in kernels.values():
-        k.launches = 0
-    (img, li, nrays), rec = sw.run(scene, spec, 0, jump)
-    torch.cuda.synchronize()
-    counts = {name: k.launches for name, k in kernels.items()}
-    if counts["K1"] <= 0 or counts["K2"] <= 0 or counts["K3"]:
-        raise AssertionError(f"phase 10: staged sync pass launches {counts}")
-    if min(rec.widths) >= sw.n:
-        raise AssertionError(f"phase 10: no bounce ran below the full width: {rec.widths}")
-    check_li(torch, (li, nrays), want, "staged sync pass vs li_wavefront", 10)
-    plan = rec.plan()
-    (img_p, li_p, nrays_p), rec_p = sw.run(scene, spec, 0, jump, widths=plan)
-    if not rec_p.ok():
-        raise AssertionError(f"phase 10: the planned schedule {plan} did not cover the pass")
-    check_li(torch, (li_p, nrays_p), want, "staged pipelined pass vs li_wavefront", 10)
-    log(f"phase 10: menu {sw.widths}; sync widths {rec.widths}, alive after each bounce "
-        f"{rec._ints()}; plan {plan}, pipelined alive {rec_p._ints()}, ok {rec_p.ok()}; "
-        f"K1 {counts['K1']}, K2 {counts['K2']} launches per pass")
-
-    def wavefront():
-        return render(scene, static, device="cuda")
-
-    def sync():
-        return sw.run(scene, spec, 0, jump)
-
-    def pipelined():
-        return sw.run(scene, spec, 0, jump, widths=plan)
-
-    fns = {"wavefront": wavefront, "sync": sync, "pipelined": pipelined}
-    ms = {k: [] for k in fns}
-    for order in (list(fns), list(fns)[::-1]):
-        for k in order:
-            ms[k].append(cuda_ms(torch, fns[k], 3))
-    profs = {k: profile_pass(torch, fns[k], out_dir, f"staged_{k}") for k in ("sync", "pipelined")}
-    for k in fns:
-        extra = ""
-        if k in profs:
-            extra = (f", device {profs[k]['device_ms']:.2f} ms in {profs[k]['kernel_launches']} "
-                     f"launches, busy {profs[k]['busy_share']:.3f}, trace kernels "
-                     f"{profs[k]['trace_kernel_ms']:.2f} ms")
-        log(f"phase 10: {k} pass {np.mean(ms[k]):.2f} ms (turns {ms[k][0]:.2f}, {ms[k][1]:.2f}; "
-            f"each a mean of 3, CUDA events){extra} [{smi}]")
-    log(f"phase 10: li_wavefront's figures of this run: phase 3 pass {wavefront_ms:.2f} ms, "
-        f"phase 5 device {wavefront_prof['device_ms']:.2f} ms in "
-        f"{wavefront_prof['kernel_launches']} launches [{smi}]")
-    return {
-        "menu": sw.widths, "sync_widths": rec.widths, "sync_alive": rec._ints(),
-        "plan": plan, "pipelined_alive": rec_p._ints(), "launches": counts,
-        "pass_ms": {k: float(np.mean(v)) for k, v in ms.items()}, "pass_ms_turns": ms,
-        "profiles": profs,
-    }
 
 
 # ---------------------------------------------------------------------------
@@ -2505,12 +2404,6 @@ def main() -> int:
             f"{t_ops:.4f}; {passes[label]['bound_unfused_ms']:.4f} at the unfused rate) [{smi}]")
         save_png(os.path.join(out_dir, f"chip_smoke_{label.lower()}_1080p.png"), img.cpu())
 
-    # ---- phase 10: the staged wavefront driver on the stand-in -------------
-    t_phase = time.time()
-    staged = phase_staged(torch, scene, static, spec, pass_ms, profiles["stand_in"], kernels,
-                          out_dir, smi)
-    log(f"phase 10: {time.time() - t_phase:.1f} s")
-
     # ---- phase 11: the pmj02bn sampler on the stand-in ----------------------
     t_phase = time.time()
     small = stand_in_scene(D, SMALL_W, SMALL_H, sampler="pmj02bn")
@@ -2670,7 +2563,7 @@ def main() -> int:
                    "rays_per_pass": nrays_stand_in,
                    "pass_ms_by_drain": pass_ab, "k3_ptxas": k3_ptxas,
                    "megakernel_passes": passes, "kernels": rows, "profiles": profiles,
-                   "staged": staged, "pmj02bn": pmj, "integrators": integrators,
+                   "pmj02bn": pmj, "integrators": integrators,
                    "textured": textured, "gradients": grads, "files": files,
                    "distributed": distributed, "lab": lab_out,
                    "measure": {k: measure[k] for k in ("rows", "glue")},

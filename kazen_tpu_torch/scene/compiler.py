@@ -222,9 +222,8 @@ class SceneStatic:
     use_megakernel: bool = False  # render() takes integrate/megakernel.py
     mega_cfg: Optional[Tuple] = None  # the megakernel's static config
     # the material texture fields (TEXTURE_FIELDS) that some material names a
-    # texture in, derived by compile_scene; None: any field may be textured
-    # (the fields of kazen_tpu's compile carry no such list)
-    textured_fields: Optional[Tuple[str, ...]] = None
+    # texture in, derived from the material table by scene_from_numpy
+    textured_fields: Tuple[str, ...] = ()
 
 
 class _TexturePacker:
@@ -697,13 +696,18 @@ def compile_numpy(scene: D.Scene) -> "tuple[dict, dict]":
         mip_textures=bool(scene.mip_textures),
         aniso_textures=bool(getattr(scene, "aniso_textures", True)),
         pixel_cone=float(2.0 * np.tan(np.deg2rad(cam.fov) / 2.0) / cam.height),
-        textured_fields=tuple(field for field, col in TEXTURE_FIELDS.items()
-                              if any(r[col] >= 0 for r in mats.rows)),
     )
     return arrays, static
 
 
 _INTEGRATORS = ("path_mis", "normals", "ao", "whitted", "path_mats")
+
+
+def textured_fields_of(materials) -> Tuple[str, ...]:
+    """The texture fields (TEXTURE_FIELDS, in its order) that some row of a
+    material table, given as arrays by column name, names a texture in."""
+    return tuple(field for field, col in TEXTURE_FIELDS.items()
+                 if (np.asarray(materials[col]) >= 0).any())
 
 
 def _static_from_fields(fields: dict) -> SceneStatic:
@@ -745,7 +749,8 @@ def scene_from_numpy(
     numpy: ``arrays`` holds SceneArrays' fields by name (``materials``,
     ``textures`` and ``trace_tables`` as dicts of arrays, bf16 already
     converted to f32; a missing or None ``trace_tables`` is packed here), ``static_fields``
-    holds SceneStatic's fields. kazen_tpu's compiled scene converts to this
+    holds SceneStatic's fields (``textured_fields`` is derived here, from the
+    material table). kazen_tpu's compiled scene converts to this
     form field by field, which is how the tests feed both packages one
     scene.
 
@@ -756,7 +761,8 @@ def scene_from_numpy(
     reference's default off its accelerator), True and False force it. True
     on a scene outside the class raises."""
     device = resolve_device(device)
-    static = _static_from_fields(static_fields)
+    static = dataclasses.replace(_static_from_fields(static_fields),
+                                 textured_fields=textured_fields_of(arrays["materials"]))
 
     def f32(name):
         return torch.tensor(np.asarray(arrays[name], np.float32), device=device)

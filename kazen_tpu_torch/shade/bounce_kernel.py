@@ -123,8 +123,6 @@ def supported_reason(arrays, static) -> Tuple[bool, str]:
         return False, "normal map present"
     if any(t not in SUPPORTED_BTYPES for t in static.btypes_present):
         return False, "BSDF type outside the kernel's set"
-    if static.textured_fields is None:
-        return False, "textured material fields unknown"
     if static.textured_fields:
         return False, f"textured material field {', '.join(static.textured_fields)}"
     return True, "supported"
@@ -297,8 +295,7 @@ def shade_cuda(tables: ShadeTables, static, rows, ray_o, ray_d, li, alive, throu
         raise ValueError("too many lanes for one launch")
     if rows.dtype != torch.float32 or rows.dim() != 2 or rows.shape[1] != n \
             or rows.shape[0] < 34 or rows.stride(1) != 1 or rows.device != dev:
-        raise ValueError(f"rows must be float32 (40, {n}) on {dev}, each row contiguous "
-                         f"(a staged pass's lane prefix is a view)")
+        raise ValueError(f"rows must be float32 (40, {n}) on {dev}, each row contiguous")
     n_strat = static.num_lights
     nl = tables.linfo.shape[0]
     if n_strat > nl:

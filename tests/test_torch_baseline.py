@@ -16,8 +16,6 @@
 - The entry points repaired to default to the card raise without CUDA.
 """
 import dataclasses
-import importlib.util
-import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -38,13 +36,12 @@ from kazen_tpu_torch.samplers import tables as tables_t
 from kazen_tpu_torch.shade import medium as medium_t
 
 from torch_port_helpers import (
-    assert_carried_static_equal,
     compile_port,
     compile_reference,
+    jax_baseline_configs,
     port_from_reference,
 )
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXACT = (
     "V", "F", "N", "UV", "face_shade", "face_mesh", "mesh_material", "mesh_light",
     "mesh_has_normals", "mesh_has_uvs", "light_mesh", "light_radiance",
@@ -55,24 +52,9 @@ EXACT = (
 SMALL = {1: (24, 24), 2: (24, 24), 3: (24, 24), 4: (24, 14)}
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Small renders gain little from intra-op threads; one thread keeps
-    them from contending with the suite's other workers for the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def example():
-    """examples/baseline_configs.py, loaded from its file as it is."""
-    spec = importlib.util.spec_from_file_location(
-        "jax_baseline_configs", os.path.join(REPO, "examples", "baseline_configs.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return jax_baseline_configs()
 
 
 def _resized(desc, size):
@@ -122,7 +104,7 @@ def test_example_tables_match_reference(example, n):
     a_j, s_j = compile_reference(desc)
     a_t, s_t = compile_port(desc)
     a_r, s_r = port_from_reference(a_j, s_j)
-    assert_carried_static_equal(s_r, s_t)
+    assert s_r == s_t
     _tables_equal(a_r, a_t)
 
 

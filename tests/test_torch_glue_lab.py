@@ -7,6 +7,8 @@ import torch
 
 from kazen_tpu_torch.lab import glue_lab
 
+import torch_port_helpers  # noqa: F401  (the port's tests' torch-thread policy)
+
 ORIGINAL_ROWS = [
     "argsort u32 (stable)", "sort u32 (values)", "permute 1 rows", "permute 8 rows",
     "permute 48 rows", "gather (36378, 24) table by id", "plain gather (8, 24) table",

@@ -32,17 +32,6 @@ from torch_port_helpers import (
 )
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """These small renders gain nothing from intra-op threads (the file
-    takes as long with one); one thread keeps them from contending with the
-    suite's other workers for the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _grad(fn, x):
     x = x.detach().clone().requires_grad_(True)
     fn(x).backward()

@@ -5,7 +5,6 @@ import dataclasses
 
 import numpy as np
 import optax
-import pytest
 import jax.numpy as jnp
 import torch
 
@@ -15,17 +14,6 @@ from kazen_tpu_torch.diff import inverse as inv
 from kazen_tpu_torch.integrate import render as render_t
 
 from torch_port_helpers import compile_port
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """These small renders gain nothing from intra-op threads (the file
-    takes as long with one); one thread keeps them from contending with the
-    suite's other workers for the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _replace(arrays, **kw):

@@ -28,6 +28,8 @@ from benchmarks import visit_lab as visit_j
 from kazen_tpu_torch.lab import mxu_lab as mxu_t
 from kazen_tpu_torch.lab import visit_lab as visit_t
 
+import torch_port_helpers  # noqa: F401  (the port's tests' torch-thread policy)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_PRECISION = {"HIGHEST": jax.lax.Precision.HIGHEST, "DEFAULT": jax.lax.Precision.DEFAULT}
 BIG = np.float32(3e38)

@@ -21,17 +21,9 @@ from kazen_tpu_torch.lab import megakernel_cliff as mc
 from kazen_tpu_torch.lab import profile_pass2 as pp2
 from kazen_tpu_torch.scene.compiler import compile_scene
 
+import torch_port_helpers  # noqa: F401  (the port's tests' torch-thread policy)
+
 CLIFF_SIZE = (32, 18)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Small renders gain little from intra-op threads; one thread keeps
-    them from contending with the suite's other workers for the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _gate(label, got, want):

@@ -74,15 +74,19 @@ def _li_reference(arrays, static, sample):
     return np.asarray(li), float(nrays)
 
 
-def _li_port(scene, static, sample):
+def _lanes_port(scene, static, sample):
+    """(sampler spec, streams, camera rays) of one pass over the pixel grid."""
     spec = render_t.sampler_spec(static)
     px, py = render_t.pixel_grid(static, scene.device)
     st = streams_t.init_stream(spec, px, py, sample)
     st, jitter = streams_t.next_pixel_2d(spec, st)
     ps = torch.stack([px, py], -1).to(torch.float32) + jitter
     st, ap = streams_t.next_2d(spec, st)
-    rays = cam_t.sample_ray(scene, static, ps, ap)
-    _, li, nrays = pm_t.li_wavefront(scene, static, spec, st, rays)
+    return spec, st, cam_t.sample_ray(scene, static, ps, ap)
+
+
+def _li_port(scene, static, sample):
+    _, li, nrays = pm_t.li_wavefront(scene, static, *_lanes_port(scene, static, sample))
     return li.numpy(), float(nrays)
 
 
@@ -122,6 +126,36 @@ def test_render_pass_film_matches_reference(case):
     )
     _assert_radiance_close(film_t_.numpy(), np.asarray(film_j))
     assert abs(float(nr_t) - float(nr_j)) <= 1e-3 * float(nr_j)
+
+
+@pytest.fixture(scope="module")
+def bounce_states():
+    """The port's wavefront state after each bounce of one pass of the
+    multi-cluster box (depth 5, several clusters, so the permute runs);
+    paths end within the pass."""
+    scene, static = compile_port(multi_cluster_scene(width=24, height=24))
+    assert pm_t._ordering_useful(scene) and static.max_depth == 5
+    spec, stream, rays = _lanes_port(scene, static, 0)
+    st = pm_t.wavefront_init(scene, static, spec, stream, rays)
+    states = []
+    for depth in range(static.max_depth):
+        st = pm_t._bounce_ordered(scene, static, spec, st, draw_rr=depth >= 3)
+        states.append(st)
+    assert int(states[-1].alive.sum()) < states[-1].alive.shape[0]
+    return states
+
+
+@pytest.mark.parametrize("bounce", range(1, 6), ids=lambda b: f"bounce{b}")
+def test_packet_order_puts_live_lanes_first(bounce_states, bounce):
+    """After a bounce's permute the lanes whose path ray continues come
+    first (the tier bit of path_mis.packet_key): ``alive`` is a prefix of
+    the lanes, and ``lane`` is a permutation of the pixel-order ids."""
+    st = bounce_states[bounce - 1]
+    n = st.alive.shape[0]
+    k = int(st.alive.sum())
+    assert k > 0
+    assert bool(st.alive[:k].all()) and not bool(st.alive[k:].any())
+    assert torch.equal(torch.sort(st.lane).values, torch.arange(n))
 
 
 def test_render_entry_point(tmp_path):
@@ -183,7 +217,7 @@ def test_port_imports_neither_jax_nor_kazen_tpu():
             seen.add(os.path.relpath(path, PORT_DIR))
     assert len(seen) >= 30
     for module in (
-        "samplers/tables.py", "integrate/staged.py", "integrate/simple.py", "core/dpdf.py",
+        "samplers/tables.py", "integrate/simple.py", "core/dpdf.py",
         "shade/medium.py", "utils/metrics.py", "shade/textures.py", "shade/lights.py",
         "diff/inverse.py", "film/checkpoint.py", "scene/obj.py", "scene/xml_io.py",
         "dist/sharding.py", "dist/multihost.py", "cli/main.py", "cli/__main__.py",

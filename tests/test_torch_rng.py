@@ -15,6 +15,8 @@ from kazen_tpu.samplers import streams as streams_j
 from kazen_tpu_torch.core import rng as rng_t
 from kazen_tpu_torch.samplers import streams as streams_t
 
+import torch_port_helpers  # noqa: F401  (the port's tests' torch-thread policy)
+
 RNG = np.random.default_rng(11)
 
 

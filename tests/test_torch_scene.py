@@ -14,13 +14,15 @@ from kazen_tpu_torch.scene import compiler as comp_t
 from kazen_tpu_torch.scene import description as DT
 
 from torch_port_helpers import (
-    assert_carried_static_equal,
     assert_static_equal,
+    base_textured_scene,
     compile_port,
     compile_reference,
+    jax_baseline_configs,
     materials_scene,
     multi_cluster_scene,
     port_from_reference,
+    textured_scene,
     to_port,
 )
 
@@ -114,13 +116,44 @@ def test_scene_from_numpy_round_trip(both):
     """kazen_tpu's compiled scene carried across equals the port's compile."""
     (a_j, s_j), (a_t, s_t) = both
     a_r, s_r = port_from_reference(a_j, s_j)
-    assert_carried_static_equal(s_r, s_t)
+    assert s_r == s_t
     for name in EXACT:
         assert torch.equal(getattr(a_r, name), getattr(a_t, name)), name
     for f in dataclasses.fields(a_t.materials):
         assert torch.equal(getattr(a_r.materials, f.name), getattr(a_t.materials, f.name))
     for name in ("node_scalars", "geo_shade", "leaf_bounds", "tri"):
         assert torch.equal(getattr(a_r.trace_tables, name), getattr(a_t.trace_tables, name))
+
+
+def _con2_small():
+    """BASELINE's config 4 (con-2) at 24x14: a lat-long image background,
+    and no material field textured."""
+    desc = jax_baseline_configs().config_scene(4)
+    desc.camera.width, desc.camera.height = 24, 14
+    return desc
+
+
+CARRIED = {
+    # description, the material fields it textures
+    "multi_cluster": (multi_cluster_scene, ()),
+    "textured": (textured_scene, ("base", "metallic", "roughness", "normal")),
+    "base_textured": (base_textured_scene, ("base",)),
+    "con2": (_con2_small, ()),
+}
+
+
+@pytest.mark.parametrize("name", list(CARRIED))
+def test_carried_scene_derives_textured_fields(name):
+    """kazen_tpu's compile carried across derives ``textured_fields`` from
+    its material table, so its static equals the port's compile field for
+    field."""
+    make, fields = CARRIED[name]
+    desc = make()
+    _, s_r = port_from_reference(*compile_reference(desc))
+    _, s_t = compile_port(desc)
+    assert s_r == s_t
+    assert s_r.textured_fields == fields
+    assert s_r.has_image_textures == (name != "multi_cluster")
 
 
 def test_numpy_builder_builds_the_native_tree():

@@ -47,7 +47,7 @@ from kazen_tpu_torch.shade import textures as tex_t
 
 from kazen_tpu_torch.diff import inverse
 from kazen_tpu_torch.examples import baseline_configs as bc
-from kazen_tpu_torch.scene.compiler import compile_scene
+from kazen_tpu_torch.scene.compiler import TEXTURE_FIELDS, compile_scene
 
 from torch_port_helpers import (
     assert_static_equal,
@@ -349,12 +349,13 @@ def test_untextured_fields_render_bit_for_bit():
     """con-2's only image is its background, so no material field is
     textured: its lookups return the rows' constants without the image path
     (and without the footprint), and the image equals the one every lookup
-    running the image path gives (textured_fields None), bit for bit."""
+    running the image path gives (every field in textured_fields), bit for
+    bit."""
     a_t, s_t = _con2(64, 36, 2)
     assert s_t.has_image_textures and s_t.mip_textures and s_t.textured_fields == ()
     img = render_t.render(a_t, s_t, device="cpu")
     img_image_path = render_t.render(
-        a_t, dataclasses.replace(s_t, textured_fields=None), device="cpu")
+        a_t, dataclasses.replace(s_t, textured_fields=tuple(TEXTURE_FIELDS)), device="cpu")
     assert img.mean() > 0.01
     assert torch.equal(img, img_image_path)
 
@@ -369,7 +370,7 @@ def test_untextured_fields_gradients_match_the_image_path():
     spec = render_t.sampler_spec(s_t, "cpu")
     target = torch.full((s_t.height, s_t.width, 3), 0.25)
     losses, grads = [], []
-    for static in (s_t, dataclasses.replace(s_t, textured_fields=None)):
+    for static in (s_t, dataclasses.replace(s_t, textured_fields=tuple(TEXTURE_FIELDS))):
         params = inverse.as_leaves(inverse.get_params(a_t, ("materials", "texels", "bg_color")))
         loss = inverse.image_loss(inverse.render_image(a_t, static, spec, params, [0]), target)
         losses.append(loss)
@@ -403,6 +404,6 @@ def test_base_only_textures_match_reference(base_textured):
     _, li_t, nr_t = pm_t.li_wavefront(a_t, s_t, *_lanes_port(a_t, s_t, 2))
     _assert_render_close(li_t.numpy(), np.asarray(li_j))
     assert abs(float(nr_t) - float(nr_j)) <= 1e-3 * float(nr_j)
-    s_image_path = dataclasses.replace(s_t, textured_fields=None)
+    s_image_path = dataclasses.replace(s_t, textured_fields=tuple(TEXTURE_FIELDS))
     _, li_image_path, _ = pm_t.li_wavefront(a_t, s_image_path, *_lanes_port(a_t, s_t, 2))
     assert torch.equal(li_t, li_image_path)

@@ -23,16 +23,6 @@ from torch_port_helpers import multi_cluster_scene, textured_scene, to_port
 SIZE = 16  # a 16x16 Cornell box with a kiss sphere, several clusters
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Small renders gain little from intra-op threads; one thread keeps
-    them from contending with the suite's other workers for the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def scenes():
     """{sampler: (arrays, static)} of the box at 2 spp."""

@@ -1,8 +1,10 @@
 """Shared helpers of the tests that hold kazen_tpu_torch against kazen_tpu:
 scene descriptions carried across, compiled scenes converted to numpy, the
 small scenes the tests use, a gradient gate, and process groups run with a
-timeout."""
+timeout. Every tests/test_torch_*.py imports this module, which also sets
+the torch-thread policy of the port's tests."""
 import dataclasses
+import importlib.util
 import os
 import subprocess
 import sys
@@ -10,6 +12,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from kazen_tpu.accel import native as native_j
 from kazen_tpu.scene import description as DJ
@@ -17,10 +20,16 @@ from kazen_tpu.scene.compiler import compile_scene as compile_jax
 from kazen_tpu_torch.accel import native as native_t
 from kazen_tpu_torch.dist.multihost import free_port
 from kazen_tpu_torch.scene import description as DT
-from kazen_tpu_torch.scene.compiler import TEXTURE_FIELDS, scene_from_numpy
 from kazen_tpu_torch.scene.compiler import compile_scene as compile_torch
+from kazen_tpu_torch.scene.compiler import scene_from_numpy, textured_fields_of
 
 from scenes import cornell_box, make_mesh, sphere_mesh
+
+# One intra-op torch thread per test process. The suite runs as 6 xdist
+# workers on the machine's cores; a worker that takes every core for its
+# intra-op pool starves the other five, and the small tensors of these tests
+# gain little from the pool.
+torch.set_num_threads(1)
 
 KISS = dict(base_color=(0.6, 0.4, 0.8), metallic=0.3, roughness=0.3)
 KISS_COAT = dict(
@@ -152,16 +161,20 @@ def reference_to_numpy(arrays, static):
     return out, dataclasses.asdict(static)
 
 
+def jax_baseline_configs():
+    """examples/baseline_configs.py (BASELINE.json's configurations in
+    kazen_tpu's description classes), loaded from its file as it is."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "jax_baseline_configs", os.path.join(repo, "examples", "baseline_configs.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def port_from_reference(arrays, static):
     """The port's scene built from kazen_tpu's compiled scene."""
     return scene_from_numpy(*reference_to_numpy(arrays, static), device="cpu")
-
-
-def textured_fields_of(materials):
-    """The texture fields that some row of a material table (either
-    package's) names a texture in, in the port compiler's order."""
-    return tuple(field for field, col in TEXTURE_FIELDS.items()
-                 if (np.asarray(getattr(materials, col)) >= 0).any())
 
 
 def assert_static_equal(s_t, s_j, a_j):
@@ -171,15 +184,7 @@ def assert_static_equal(s_t, s_j, a_j):
     for f in dataclasses.fields(s_t):
         if f.name != "textured_fields":
             assert getattr(s_t, f.name) == getattr(s_j, f.name), f.name
-    assert s_t.textured_fields == textured_fields_of(a_j.materials)
-
-
-def assert_carried_static_equal(s_r, s_t):
-    """kazen_tpu's static carried across (port_from_reference) equals the
-    port's compile, save for the fields kazen_tpu has none of, which keep
-    the defaults (textured_fields None: every field may be textured)."""
-    assert s_r.textured_fields is None
-    assert dataclasses.replace(s_r, textured_fields=s_t.textured_fields) == s_t
+    assert s_t.textured_fields == textured_fields_of(a_j.materials._asdict())
 
 
 def _bump_normals(res, seed):
