@@ -19,12 +19,13 @@ benchmarks/kernel_ablate.py.
 
 Phases (each check raises; the script exits non-zero on the first failure):
 
-0. Build the CUDA trace kernels, the megakernel and the lab probes (nvcc,
-   sm_90a, one library each) and the native BVH builder (g++) from the
-   sources in the checkout, in parallel; log each kernel's registers and
-   spills (K1/K2's serial and cooperative drains are one kernel, so one
-   line serves both; K1's nofetch instance has its own; K3's for each
-   instance __launch_bounds__(128, B), B in MIN_BLOCKS_CHOICES).
+0. Build the CUDA trace kernels, the megakernel, the lab probes, the shade
+   kernel and the draw kernel (nvcc, sm_90a, one library each) and the
+   native BVH builder (g++) from the sources in the checkout, in parallel;
+   log each kernel's registers and spills (K1/K2's serial and
+   cooperative drains are one kernel, so one line serves both; K1's
+   nofetch instance has its own; K3's for each instance
+   __launch_bounds__(128, B), B in MIN_BLOCKS_CHOICES).
 1. K1/K2 against their plain PyTorch versions on the card, on the stand-in
    scene (Cornell box + a 36,864-triangle kiss sphere): 262,144 seeded
    random rays and one 1920x1080 frame of camera rays; and against their
@@ -179,9 +180,18 @@ Phases (each check raises; the script exits non-zero on the first failure):
     (kernel on every bounce) and of config 3 and Textured render() passes
     and a con-2 optimize() step (plain on every bounce).
 
-Each of phases 11-22 logs its seconds, and the script its total. Phases
-17-22 can run alone after phase 0's builds (phase_lab, phase_measure,
-phase_baseline, phase_cliff, phase_ablate, phase_shade).
+23. The sampler's draw kernel (phase_sampler,
+    kazen_tpu_torch/lab/sampler_check.py): a pass's 35 draws over 1920x1080
+    lanes for config 4's pmj02bn spec (con-2) and config 2's stratified
+    128-spp spec, each draw run by the kernel and by the plain version on
+    the same stream, every field and uniform equal bit for bit; each draw
+    kernel's ms a launch (CUDA events), its bytes bound and the plain
+    version's ms; then one con-2 render() pass: ``sampler_route`` kernel on
+    every draw, one launch each, and no host read of core/rng.py.
+
+Each of phases 11-23 logs its seconds, and the script its total. Phases
+17-23 can run alone after phase 0's builds (phase_lab, phase_measure,
+phase_baseline, phase_cliff, phase_ablate, phase_shade, phase_sampler).
 Every comparison of radiance holds PERF.md's gate: per-lane radiance within
 rtol 1e-3 / atol 1e-4 on >= 99% of lanes, channel means within 0.5% and ray
 totals within 0.1%.
@@ -1911,6 +1921,7 @@ def phase_ablate(torch, smi, out_dir):
 # the shade kernel's cases (phase 22): lab/shade_check.py's configurations
 # and sizes
 SHADE_CASES = (("4", None), ("2", None), ("mixed", (256, 256)), ("mixed_single", (128, 128)))
+SAMPLER_CONFIGS = ("4", "2")  # con-2's pmj02bn, config 2's stratified 128 spp
 
 
 def phase_shade(torch, smi) -> dict:
@@ -1982,6 +1993,39 @@ def phase_shade(torch, smi) -> dict:
         "agreement": "bit for bit on every column"}}
 
 
+def phase_sampler(torch, smi) -> dict:
+    """Phase 23: the draw kernel held against the plain version over a
+    pass's draws for SAMPLER_CONFIGS at 1920x1080 lanes, and the route of
+    a con-2 render() pass; the kernel's row of the kernel table."""
+    from kazen_tpu_torch.lab import sampler_check
+    from kazen_tpu_torch.samplers import draw_kernel
+
+    cases = {}
+    for config in SAMPLER_CONFIGS:
+        out = sampler_check.main(config, (WIDTH, HEIGHT), route=config == "4")
+        cases[config] = {k: v for k, v in out.items() if k != "records"}
+        cases[config]["draw_ms"] = {r["name"]: r["ms"] for r in out["records"]}
+        cases[config]["draw_plain_ms"] = {r["name"]: r["plain_ms"] for r in out["records"]}
+        log(f"phase 23: config {config} ({out['kind']}, n {out['n']}): {out['draws']} draws, "
+            f"kernel {out['ms_per_pass']:.4f} ms a pass (bound {out['bound_ms_per_pass']:.4f}, "
+            f"plain {out['plain_ms_per_pass']:.3f}); by draw {out['ms_by_draw']}; {smi}")
+        if not out["equal"]:
+            raise AssertionError(f"phase 23: config {config}: draws differ: {out['differ']}")
+    con2 = cases["4"]
+    log(f"phase 23: con-2 render() pass: sampler_route {con2['sampler_route']}, "
+        f"{con2['launches']} draw launches, core/rng.py host reads {con2['rng_reads']}")
+    if set(con2["sampler_route"]) != {"kernel"} or con2["rng_reads"] \
+            or con2["launches"] != con2["sampler_route"]["kernel"]:
+        raise AssertionError("phase 23: render() did not take the draw kernel on every draw")
+    return {"cases": cases, "row": {
+        "name": draw_kernel.DRAWS.name, "route": "cuda",
+        "source": "kazen_tpu_torch/samplers/csrc/draws.cu", "replaces": draw_kernel.DRAWS.replaces,
+        "launches": con2["launches"], "ms": con2["ms_per_pass"] / con2["draws"],
+        "bound_ms": con2["bound_ms_per_pass"] / con2["draws"], "bound_by": "bytes",
+        "plain_ms": con2["plain_ms_per_pass"] / con2["draws"], "library_ms": None,
+        "agreement": "bit for bit on every field and uniform"}}
+
+
 def main() -> int:
     import torch
 
@@ -1996,6 +2040,7 @@ def main() -> int:
     from kazen_tpu_torch.integrate.render import render, sampler_spec
     from kazen_tpu_torch.lab import kernel_ablate
     from kazen_tpu_torch.scene import description as D
+    from kazen_tpu_torch.samplers import draw_kernel
     from kazen_tpu_torch.scene.compiler import compile_scene
     from kazen_tpu_torch.shade import bounce_kernel
 
@@ -2011,17 +2056,20 @@ def main() -> int:
         f_mega = pool.submit(mk.build_library)
         f_lab = pool.submit(lab.build_library)
         f_shade = pool.submit(bounce_kernel.build_library)
+        f_draws = pool.submit(draw_kernel.build_library)
         f_bvh = pool.submit(bvh_library)
         nvcc_out = {"trace": f_trace.result()[1], "megakernel": f_mega.result()[1],
-                    "lab": f_lab.result()[1], "shade": f_shade.result()[1]}
+                    "lab": f_lab.result()[1], "shade": f_shade.result()[1],
+                    "draws": f_draws.result()[1]}
         f_bvh.result()
     build_s = time.time() - t0
     smi = card_line()  # nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
-    log(f"phase 0: built the trace kernels, the megakernel, the lab probes, the shade kernel "
-        f"and the BVH builder in {build_s:.1f} s")
-    for line in nvcc_out["shade"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas (shade): {line.strip()}")
+    log(f"phase 0: built the trace kernels, the megakernel, the lab probes, the shade kernel, "
+        f"the draw kernel and the BVH builder in {build_s:.1f} s")
+    for stem in ("shade", "draws"):
+        for line in nvcc_out[stem].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas ({stem}): {line.strip()}")
     for line in nvcc_out["lab"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas (lab): {line.strip()}")
@@ -2522,6 +2570,11 @@ def main() -> int:
     t_phase = time.time()
     shade = phase_shade(torch, smi)
     log(f"phase 22: {time.time() - t_phase:.1f} s")
+
+    # ---- phase 23: the draw kernel against its plain version ----------------
+    t_phase = time.time()
+    sampler = phase_sampler(torch, smi)
+    log(f"phase 23: {time.time() - t_phase:.1f} s")
     original = ablate["rows"][ablate["original"]]
     rows[0]["nofetch"] = {
         "ms": original["nofetch_ms"], "default_ms": original["ms"], "rays": ablate["original"],
@@ -2558,6 +2611,7 @@ def main() -> int:
     })
     rows.extend(lab_rows)
     rows.append(shade.pop("row"))
+    rows.append(sampler.pop("row"))
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "trace_ptxas": trace_regs, "pass_ms": pass_ms,
                    "rays_per_pass": nrays_stand_in,
@@ -2568,6 +2622,7 @@ def main() -> int:
                    "distributed": distributed, "lab": lab_out,
                    "measure": {k: measure[k] for k in ("rows", "glue")},
                    "baseline": baseline, "cliff": cliff, "ablate": ablate, "shade": shade,
+                   "sampler": sampler,
                    "total_s": time.time() - t_start},
                   f, indent=1)
     log(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s")

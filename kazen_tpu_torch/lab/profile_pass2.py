@@ -81,7 +81,8 @@ PATH_MIS_STAGES = {
     "li_wavefront": "other", "wavefront_init": "other",
 }
 BOUNCE, PROLOGUE = "_bounce_ordered", "_shade_prologue"
-SAMPLER_FILES = ("samplers/streams.py", "core/rng.py", "samplers/tables.py")
+SAMPLER_FILES = ("samplers/streams.py", "samplers/draw_kernel.py", "core/rng.py",
+                 "samplers/tables.py")
 _FRAME = re.compile(r"kazen_tpu_torch/([\w/]+\.py)\((\d+)\): (\S+)")
 
 

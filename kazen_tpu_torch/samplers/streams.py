@@ -10,6 +10,13 @@ Kinds: independent (sampler.cpp:18-71), stratified (:81-156), correlated
 (:176-269) and pmj02bn (:273-390, with the tables of samplers/tables.py;
 its spec comes from ``tables.make_pmj02bn_spec``, which puts them on the
 device).
+
+Each of the four draws (``init_stream_jump``, ``next_1d``, ``next_2d``,
+``next_pixel_2d``) routes by what its lanes show: CUDA tensors launch the
+kernel of ``draw_kernel.py`` (one launch a draw, no host read), CPU tensors
+take the plain version beside it (``_init_plain``, ``_next_1d_plain``,
+``_next_2d_plain``, ``_pixel_2d_plain``), which the kernel equals bit for
+bit on the card. The tracer counts each draw by route (``sampler_route``).
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ import torch
 
 from ..core import rng
 from ..utils import metrics
+from . import draw_kernel
 
 KINDS = ("independent", "stratified", "correlated", "pmj02bn")
 ONE_MINUS_EPSILON = float.fromhex("0x1.fffffep-1")
@@ -93,6 +101,14 @@ def init_stream(spec: SamplerSpec, px, py, sample_index: int) -> StreamState:
     )
 
 
+def _kernel_route(lanes: torch.Tensor) -> bool:
+    """Whether a draw takes the kernel: for CUDA lanes, and only for them.
+    The tracer counts the draw by its route."""
+    route = "kernel" if lanes.device.type == "cuda" else "plain"
+    metrics.sampler_route(route)
+    return route == "kernel"
+
+
 @metrics.traced("sampler.draw")
 def init_stream_jump(spec: SamplerSpec, px, py, sample_index, jump) -> StreamState:
     """init_stream with the jump constants (A, S) of
@@ -103,6 +119,15 @@ def init_stream_jump(spec: SamplerSpec, px, py, sample_index, jump) -> StreamSta
     its state is not advanced, and its dimensions start at 2."""
     px = px.to(torch.int64)
     py = py.to(torch.int64)
+    if isinstance(sample_index, torch.Tensor):
+        sample_index = sample_index.to(torch.int64)
+    if _kernel_route(px):
+        state, inc, dim, sample_index = draw_kernel.init(spec, px, py, sample_index, jump)
+        return StreamState(state, inc, dim, px, py, sample_index)
+    return _init_plain(spec, px, py, sample_index, jump)
+
+
+def _init_plain(spec: SamplerSpec, px, py, sample_index, jump) -> StreamState:
     state, inc = rng.pcg_seed(rng.hash_pixel_seed(px, py, spec.seed))
     if spec.kind != "pmj02bn":
         state, inc = rng.pcg_advance_jump((state, inc), *jump)
@@ -113,7 +138,7 @@ def init_stream_jump(spec: SamplerSpec, px, py, sample_index, jump) -> StreamSta
         px=px,
         py=py,
         sample_index=(
-            sample_index.to(torch.int64) if isinstance(sample_index, torch.Tensor)
+            sample_index if isinstance(sample_index, torch.Tensor)
             else torch.full_like(px, int(sample_index))
         ),
     )
@@ -131,6 +156,14 @@ def _hash32_dim(spec: SamplerSpec, st: StreamState):
 
 @metrics.traced("sampler.draw")
 def next_1d(spec: SamplerSpec, st: StreamState):
+    """One uniform a lane: (stream, (N,) float32)."""
+    if _kernel_route(st.px):
+        state, dim, u = draw_kernel.draw(spec, st, 1)
+        return st._replace(state=state, dim=dim), u
+    return _next_1d_plain(spec, st)
+
+
+def _next_1d_plain(spec: SamplerSpec, st: StreamState):
     n = spec.effective_sample_count
     if spec.kind == "independent":
         return _next_float(st)
@@ -151,6 +184,14 @@ def next_1d(spec: SamplerSpec, st: StreamState):
 
 @metrics.traced("sampler.draw")
 def next_2d(spec: SamplerSpec, st: StreamState):
+    """Two uniforms a lane: (stream, (N, 2) float32)."""
+    if _kernel_route(st.px):
+        state, dim, u = draw_kernel.draw(spec, st, 2)
+        return st._replace(state=state, dim=dim), u
+    return _next_2d_plain(spec, st)
+
+
+def _next_2d_plain(spec: SamplerSpec, st: StreamState):
     n = spec.effective_sample_count
     if spec.kind == "independent":
         st, u0 = _next_float(st)
@@ -197,12 +238,18 @@ def next_pixel_2d(spec: SamplerSpec, st: StreamState):
     """nextPixel2D: the sub-pixel jitter draw. pmj02bn reads its pixel-tile
     table and consumes no dimension (sampler.cpp:373-377); every other kind
     aliases next2D."""
-    if spec.kind == "pmj02bn":
-        tile, tile_size = spec.pmj_pixel_table
-        n = spec.effective_sample_count
-        offset = ((st.px % tile_size) + (st.py % tile_size) * tile_size) * n + st.sample_index
-        return st, tile[offset]
-    return next_2d(spec, st)
+    if spec.kind != "pmj02bn":
+        return next_2d(spec, st)
+    if _kernel_route(st.px):
+        return st, draw_kernel.pixel_2d(spec, st)
+    return _pixel_2d_plain(spec, st)
+
+
+def _pixel_2d_plain(spec: SamplerSpec, st: StreamState):
+    tile, tile_size = spec.pmj_pixel_table
+    n = spec.effective_sample_count
+    offset = ((st.px % tile_size) + (st.py % tile_size) * tile_size) * n + st.sample_index
+    return st, tile[offset]
 
 
 def _bluenoise_lookup(spec: SamplerSpec, table_index, px, py):

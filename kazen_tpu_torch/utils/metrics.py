@@ -15,8 +15,8 @@ can be put in its span by correlation id. A ``render.pass`` span on the
 card records a CUDA event at its start and end; nothing waits on them until
 ``collect()``, which makes the one synchronize and returns the spans and
 counters (host reads by site, material texture lookups by field and route,
-bounces by shade route, CUDA kernel launches, rays traced) and clears
-them. ``write_chrome_trace``
+bounces by shade route, sampler draws by route, CUDA kernel launches, rays
+traced) and clears them. ``write_chrome_trace``
 writes what ``collect()`` returned as a Chrome trace (the CLI's ``--trace
 FILE``). The tracer keeps one record for the
 process and is not thread-safe.
@@ -90,7 +90,8 @@ class _Record:
     """What the tracer recorded: the open spans' stack and, since tracing
     began or the last collect(), the closed spans, the host reads by site,
     the texture lookups by field and route, the bounces by shade route, the
-    ray tensors and the kernels' launch counts at the start."""
+    sampler draws by route, the ray tensors and the kernels' launch counts
+    at the start."""
 
     def __init__(self):
         self.offset_ns = time.time_ns() - time.perf_counter_ns()
@@ -100,6 +101,7 @@ class _Record:
         self.host_reads = {}
         self.texture_lookups = {}
         self.shade_route = {}
+        self.sampler_route = {}
         self.rays = []
         self.launches0 = _launch_counts()
 
@@ -216,6 +218,14 @@ def shade_route(route: str) -> None:
         _rec.shade_route[route] = _rec.shade_route.get(route, 0) + 1
 
 
+def sampler_route(route: str) -> None:
+    """Count one sampler draw by the route samplers/streams.py took:
+    "kernel" (samplers/draw_kernel.py's CUDA kernel) or "plain" (the
+    streams' plain PyTorch version)."""
+    if _on:
+        _rec.sampler_route[route] = _rec.sampler_route.get(route, 0) + 1
+
+
 def rays(nrays) -> None:
     """Keep a pass's ray count (a device tensor) for ``collect()``, which
     sums them once."""
@@ -227,18 +237,20 @@ def collect() -> dict:
     """Everything recorded since tracing began or the last collect(), which
     is cleared: ``spans`` (closed spans, in the order they closed),
     ``host_reads`` ({site: count}), ``texture_lookups`` ({field: {route:
-    count}}), ``launches`` ({CUDA kernel: launches since}), ``rays`` (their
-    sum). One synchronize where a span recorded CUDA events or a ray count
-    lives on the card. Spans still open go to the next collect()."""
+    count}}), ``shade_route`` and ``sampler_route`` ({route: count}),
+    ``launches`` ({CUDA kernel: launches since}), ``rays`` (their sum). One
+    synchronize where a span recorded CUDA events or a ray count lives on
+    the card. Spans still open go to the next collect()."""
     global _rec
     rec = _rec
     if rec is None:
         return {"spans": [], "host_reads": {}, "texture_lookups": {}, "shade_route": {},
-                "launches": {}, "rays": 0.0}
+                "sampler_route": {}, "launches": {}, "rays": 0.0}
     spans, rec.spans = rec.spans, []
     reads, rec.host_reads = rec.host_reads, {}
     lookups, rec.texture_lookups = rec.texture_lookups, {}
     routes, rec.shade_route = rec.shade_route, {}
+    draws, rec.sampler_route = rec.sampler_route, {}
     counts, rec.rays = rec.rays, []
     launches0, rec.launches0 = rec.launches0, _launch_counts()
     if not _on and not rec.stack:
@@ -251,7 +263,8 @@ def collect() -> dict:
                 if n != launches0.get(k, 0)}
     total = float(torch.stack([r.double() for r in counts]).sum()) if counts else 0.0
     return {"spans": spans, "host_reads": reads, "texture_lookups": lookups,
-            "shade_route": routes, "launches": launches, "rays": total}
+            "shade_route": routes, "sampler_route": draws, "launches": launches,
+            "rays": total}
 
 
 def write_chrome_trace(path: str, collected: dict) -> None:
@@ -271,6 +284,7 @@ def write_chrome_trace(path: str, collected: dict) -> None:
     other = {"clock": "unix", "host_reads": collected["host_reads"],
              "texture_lookups": collected["texture_lookups"],
              "shade_route": collected["shade_route"],
+             "sampler_route": collected["sampler_route"],
              "launches": collected["launches"], "rays": collected["rays"]}
     with open(path, "w") as f:
         json.dump({"traceEvents": events, "displayTimeUnit": "ms", "otherData": other}, f,

@@ -69,7 +69,8 @@ def test_tracer_off_records_and_touches_nothing(what, scenes, monkeypatch):
     run(what, scenes)
     monkeypatch.undo()
     assert metrics.collect() == {"spans": [], "host_reads": {}, "texture_lookups": {},
-                                 "shade_route": {}, "launches": {}, "rays": 0.0}
+                                 "shade_route": {}, "sampler_route": {}, "launches": {},
+                                 "rays": 0.0}
 
 
 NESTING = {
