@@ -170,15 +170,19 @@ Phases (each check raises; the script exits non-zero on the first failure):
     the warps' node steps and triangle tests; K1's rows 0-36 against the
     plain walk on 65,536 bounce-1 lanes.
 22. The shade kernel (phase_shade, kazen_tpu_torch/lab/shade_check.py): one
-    pass of config 4 (con-2, 1920x1080), config 2 (256x256) and the mixed
-    box (every lobe of the kernel's set; with a sphere, several clusters,
-    and without, one) with every bounce's shade stage run by the kernel
-    and by the plain version on the same inputs, each column equal bit for
-    bit; the main path launched the kernel (``shade_route`` kernel on every
-    bounce, one launch each); its ms a launch, its bytes bound and the
-    plain version's ms; then ``shade_route`` of a con-2 render() pass
-    (kernel on every bounce) and of config 3 and Textured render() passes
-    and a con-2 optimize() step (plain on every bounce).
+    pass of config 4 (con-2, 1920x1080), config 2 (256x256), config 3
+    (kazen-con-1: an image-textured kiss and a normal-mapped kiss, 512x512
+    and 3840x2160), the mixed box (every lobe of the kernel's set; with a
+    sphere, several clusters, and without, one) and the textured box
+    (every texture field, with each of the three footprints) with every
+    bounce's shade stage run by the kernel and by the plain version on the
+    same inputs, each column equal bit for bit; the main path launched the
+    kernel (``shade_route`` kernel on every bounce, one launch each); its
+    ms a launch, its bytes bound and the plain version's ms; then
+    ``shade_route`` of con-2 and config 3 (3840x2160) render() passes
+    (kernel on every bounce) and of a Textured render() pass and a con-2
+    optimize() step (plain on every bounce, each with its reason in
+    ``shade_plain_reason``).
 
 23. The sampler's draw kernel (phase_sampler,
     kazen_tpu_torch/lab/sampler_check.py): a pass's 35 draws over 1920x1080
@@ -1920,16 +1924,18 @@ def phase_ablate(torch, smi, out_dir):
 
 # the shade kernel's cases (phase 22): lab/shade_check.py's configurations
 # and sizes
-SHADE_CASES = (("4", None), ("2", None), ("mixed", (256, 256)), ("mixed_single", (128, 128)))
+SHADE_CASES = (("4", None), ("2", None), ("3", None), ("3", (3840, 2160)), ("mixed", (256, 256)),
+               ("mixed_single", (128, 128)), ("textured", (256, 256)),
+               ("textured_nomip", (256, 256)), ("textured_noaniso", (256, 256)))
 SAMPLER_CONFIGS = ("4", "2")  # con-2's pmj02bn, config 2's stratified 128 spp
 
 
 def phase_shade(torch, smi) -> dict:
     """Phase 22: the shade kernel held against its plain version on every
     bounce of one pass of each SHADE_CASES case, then the main path's route
-    in a con-2 render() pass (the kernel) and in passes of scenes and calls
-    outside the kernel's class (the plain version); the kernel's row of the
-    kernel table."""
+    in con-2 and config 3 render() passes (the kernel) and in passes of
+    scenes and calls outside the kernel's class (the plain version, with
+    its reason); the kernel's row of the kernel table."""
     from kazen_tpu_torch.diff.inverse import optimize
     from kazen_tpu_torch.examples import baseline_configs as bc
     from kazen_tpu_torch.integrate.render import render
@@ -1942,9 +1948,10 @@ def phase_shade(torch, smi) -> dict:
     cases = {}
     for config, size in SHADE_CASES:
         out = shade_check.main(config, size)
-        cases[config] = {k: v for k, v in out.items() if k != "records"}
-        cases[config]["bounce_ms"] = [r["ms"] for r in out["records"]]
-        cases[config]["bounce_plain_ms"] = [r["plain_ms"] for r in out["records"]]
+        key = config if size is None else f"{config}_{size[0]}x{size[1]}"
+        cases[key] = {k: v for k, v in out.items() if k != "records"}
+        cases[key]["bounce_ms"] = [r["ms"] for r in out["records"]]
+        cases[key]["bounce_plain_ms"] = [r["plain_ms"] for r in out["records"]]
         depth = len(out["records"])
         log(f"phase 22: {config} {out['width']}x{out['height']}: kernel {out['ms_per_launch']:.4f}"
             f" ms a launch (bound {out['bound_ms']:.4f}), plain {out['plain_ms']:.3f} ms; "
@@ -1955,20 +1962,26 @@ def phase_shade(torch, smi) -> dict:
             raise AssertionError(f"phase 22: {config}: the main path did not launch the kernel "
                                  f"on every bounce: {out['shade_route']}, "
                                  f"{out['kernel_launches']} launches")
-    scene, static = compile_scene(bc.config_scene(4, spp=1), device="cuda")
-    metrics.collect()
-    before = bounce_kernel.SHADE.launches
-    with metrics.tracing():
-        render(scene, static, spp=1, device="cuda")
-    got = metrics.collect()
-    launches = bounce_kernel.SHADE.launches - before
-    log(f"phase 22: con-2 render() pass: shade_route {got['shade_route']}, "
-        f"{launches} shade kernel launches")
-    if got["shade_route"] != {"kernel": static.max_depth} or launches != static.max_depth:
-        raise AssertionError("phase 22: render() did not take the shade kernel on every bounce")
+    kernel_routes = {}
+    for name, desc in (("con-2", bc.config_scene(4, spp=1)),
+                       ("config 3", bc.at_size(bc.config_scene(3, spp=1), 3840, 2160))):
+        scene, static = compile_scene(desc, device="cuda")
+        metrics.collect()
+        before = bounce_kernel.SHADE.launches
+        with metrics.tracing():
+            render(scene, static, spp=1, device="cuda")
+        got = metrics.collect()
+        launches = bounce_kernel.SHADE.launches - before
+        kernel_routes[name] = got["shade_route"]
+        log(f"phase 22: {name} render() pass: shade_route {got['shade_route']}, "
+            f"{launches} shade kernel launches, texture lookups {got['texture_lookups']}")
+        if got["shade_route"] != {"kernel": static.max_depth} or launches != static.max_depth:
+            raise AssertionError(f"phase 22: render() of {name} did not take the shade kernel "
+                                 "on every bounce")
+        if name == "con-2":
+            con2_launches = launches
     plain_routes = {}
-    for name, desc in (("config 3", bc.at_size(bc.config_scene(3, spp=1), SMALL_W, SMALL_W)),
-                       ("Textured", textured_scene(D, SMALL_W, SMALL_H)),
+    for name, desc in (("Textured", textured_scene(D, SMALL_W, SMALL_H)),
                        ("con-2 optimize", bc.at_size(bc.config_scene(4, spp=1), SMALL_W,
                                                      SMALL_H))):
         sc, st = compile_scene(desc, device="cuda")
@@ -1979,16 +1992,21 @@ def phase_shade(torch, smi) -> dict:
                          steps=1)
             else:
                 render(sc, st, spp=1, device="cuda")
-        plain_routes[name] = metrics.collect()["shade_route"]
-        log(f"phase 22: {name} {st.width}x{st.height}: shade_route {plain_routes[name]}")
+        got = metrics.collect()
+        plain_routes[name] = got["shade_route"]
+        reason = bounce_kernel.route_reason(sc, st, (torch.zeros(1, device="cuda"),))[1]
+        log(f"phase 22: {name} {st.width}x{st.height}: shade_route {plain_routes[name]}, "
+            f"shade_plain_reason {got['shade_plain_reason']}")
         if plain_routes[name] != {"plain": st.max_depth}:
             raise AssertionError(f"phase 22: {name} did not take the plain shade stage")
+        if name == "Textured" and got["shade_plain_reason"] != {reason: st.max_depth}:
+            raise AssertionError(f"phase 22: {name}'s plain bounces lack their reason")
     con2 = cases["4"]
-    return {"cases": cases, "render_shade_route": got["shade_route"],
+    return {"cases": cases, "render_shade_route": kernel_routes,
             "plain_routes": plain_routes, "row": {
         "name": bounce_kernel.SHADE.name, "route": "cuda",
         "source": "kazen_tpu_torch/shade/csrc/bounce.cu", "replaces": bounce_kernel.SHADE.replaces,
-        "launches": launches, "ms": con2["ms_per_launch"], "bound_ms": con2["bound_ms"],
+        "launches": con2_launches, "ms": con2["ms_per_launch"], "bound_ms": con2["bound_ms"],
         "bound_by": "bytes", "plain_ms": con2["plain_ms"], "library_ms": None,
         "agreement": "bit for bit on every column"}}
 

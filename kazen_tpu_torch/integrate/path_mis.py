@@ -277,6 +277,19 @@ def _nee_strata(static) -> int:
     return static.num_lights + (1 if do_env else 0)
 
 
+def _hit_interaction(st: _OState) -> Interaction:
+    """The shade prep of the hits in ``st.rows`` (prepare_from_rows)."""
+    n = st.ray_o.shape[0]
+    dev = st.ray_o.device
+    return prepare_from_rows(
+        Rays(
+            o=st.ray_o, d=st.ray_d,
+            mint=torch.zeros(n, device=dev), maxt=torch.full((n,), INF, device=dev),
+        ),
+        st.rows,
+    )[1]
+
+
 def _shade_plain(scene, static, st: _OState, li, alive, draws):
     """The shade stage of one bounce in plain PyTorch, from ``st.rows`` and
     the lane state after _shade_prologue (``li``, ``alive``) to the
@@ -286,13 +299,7 @@ def _shade_plain(scene, static, st: _OState, li, alive, draws):
     outside the kernel's class take it."""
     n = st.ray_o.shape[0]
     dev = st.ray_o.device
-    its = prepare_from_rows(
-        Rays(
-            o=st.ray_o, d=st.ray_d,
-            mint=torch.zeros(n, device=dev), maxt=torch.full((n,), INF, device=dev),
-        ),
-        st.rows,
-    )[1]
+    its = _hit_interaction(st)
     throughput = st.throughput
     eta = st.eta
     accum = st.accum_rough
@@ -391,17 +398,23 @@ def _shade_plain(scene, static, st: _OState, li, alive, draws):
 def _shade(scene, static, st: _OState, li, alive, draws):
     """The shade stage by the route the scene and the call allow
     (bounce_kernel.route_reason): the kernel or _shade_plain. The tracer's
-    ``shade_route`` counter counts the bounce by route."""
-    route, _ = bounce_kernel.route_reason(
+    ``shade_route`` counter counts the bounce by route, and a plain one by
+    its reason. Textured material fields hand the kernel the texel pool and
+    the hits' footprint, computed here as _shade_plain computes it."""
+    route, reason = bounce_kernel.route_reason(
         scene, static,
         (st.ray_o, st.ray_d, li, st.throughput, st.eta, st.bsdf_pdf, st.accum_rough),
     )
-    metrics.shade_route(route)
+    metrics.shade_route(route, reason)
     if route == "plain":
         return _shade_plain(scene, static, st, li, alive, draws)
+    footprint = (None, None)
+    if static.mip_textures and textures_mod.textured(static):
+        footprint = _texture_footprint(static, _hit_interaction(st), st.ray_d)
     return bounce_kernel.shade_cuda(
         bounce_kernel.tables_for(scene), static, st.rows, st.ray_o, st.ray_d, li, alive,
         st.throughput, st.eta, st.bsdf_pdf, st.discrete, st.accum_rough, draws,
+        texels=scene.textures.texels, footprint=footprint,
     )
 
 

@@ -1,8 +1,9 @@
 """Where a render pass's time goes, read from the program's own spans and
 counters (``utils/metrics.py``): BASELINE's configuration 4 (kazen-con-2,
-``examples/baseline_configs.py:config_scene(4)``) at 1920x1080, rendered
-as the CLI renders it (``render(scene, static, spp=...)``, which builds its
-pmj02bn tables on each call).
+``examples/baseline_configs.py:config_scene(4)``) at 1920x1080, or another
+of its configurations (``--config 3``: kazen-con-1) at a given size,
+rendered as the CLI renders it (``render(scene, static, spp=...)``, which
+builds its sampler tables on each call).
 
 One process, the tracer on unless said otherwise:
 
@@ -26,8 +27,8 @@ One process, the tracer on unless said otherwise:
   the innermost line of the package that made it, against the host-read
   counter of the same call.
 
-``python -m kazen_tpu_torch.lab.pass_split [--json FILE]`` runs it on the
-card; ``--device cpu --size 32x18 --spp 2 --calls 1`` runs it small on the
+``python -m kazen_tpu_torch.lab.pass_split [--config 3 --size 3840x2160
+--spp 8] [--json FILE]`` runs it on the card; ``--device cpu --size 32x18 --spp 2 --calls 1`` runs it small on the
 CPU (no profile, no sync debug mode).
 """
 from __future__ import annotations
@@ -232,14 +233,12 @@ def _timed_call(scene, static, device, spp: int) -> float:
 
 
 def main(device="cuda", size=(1920, 1080), spp=16, calls=3, profiled_passes=2,
-         sync_passes=2, json_path=None) -> dict:
+         sync_passes=2, json_path=None, config=4) -> dict:
     dev = resolve_device(device)
     where = card_line() if dev.type == "cuda" else "cpu"
-    desc = config_scene(4)
-    if tuple(size) != (1920, 1080):
-        desc = at_size(desc, *size)
-    out = {"resolution": "x".join(map(str, size)), "spp": spp, "device": str(dev),
-           "card": where}
+    desc = at_size(config_scene(config), *size)
+    out = {"config": config, "resolution": "x".join(map(str, size)), "spp": spp,
+           "device": str(dev), "card": where}
     metrics.collect()
     with metrics.tracing():
         scene, static = compile_scene(desc, device=dev)
@@ -288,10 +287,11 @@ def main(device="cuda", size=(1920, 1080), spp=16, calls=3, profiled_passes=2,
 if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--config", type=int, default=4, help="BASELINE configuration 1-4")
     parser.add_argument("--size", default="1920x1080")
     parser.add_argument("--spp", type=int, default=16)
     parser.add_argument("--calls", type=int, default=3)
     parser.add_argument("--json", help="write the results to this file")
     args = parser.parse_args()
     main(args.device, tuple(int(v) for v in args.size.split("x")), args.spp, args.calls,
-         json_path=args.json)
+         json_path=args.json, config=args.config)

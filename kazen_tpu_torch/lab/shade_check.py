@@ -14,8 +14,11 @@ the plain version's ms and the kernel's bound, with the pass's
 On the CPU the route is the plain version, so the hold compares it with
 itself (a rehearsal of the script). ``python -m
 kazen_tpu_torch.lab.shade_check --config 4`` runs BASELINE config 4 (con-2)
-at its 1920x1080 (``--config mixed``: every lobe of the kernel's set);
-``--size 64x36 --device cpu`` rehearses it.
+at its 1920x1080 (``--config 3``: config 3's image-textured and
+normal-mapped kiss at 512x512; ``--config mixed``: every lobe of the
+kernel's set; ``--config textured``: every texture field and both
+normal-mapped lobes, with ``_nomip`` and ``_noaniso`` for the other two
+footprints); ``--size 64x36 --device cpu`` rehearses it.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from ..film import film as film_mod
 from ..integrate import path_mis
 from ..integrate.render import _render_pass, pixel_grid, sampler_spec
 from ..shade import bounce_kernel
+from ..shade import textures as textures_mod
 from ..utils import metrics
 
 COLUMNS = ("p", "nee_wi", "smaxt", "pd", "li", "throughput", "eta", "accum", "contrib",
@@ -40,13 +44,23 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 ROWS_READ = 31  # K1 rows 3-33
 
 
-def lane_bytes(n_strat: int, draw_rr: bool) -> int:
+def lane_bytes(n_strat: int, draw_rr: bool, footprint: int = 0) -> int:
     """Bytes a lane of the kernel reads and writes once: K1's rows 3-33,
     ray o and d, li and throughput, eta, bsdf_pdf, accum, alive and
-    discrete, the uniforms it consumes; out the 24 floats and two int64."""
+    discrete, the uniforms it consumes, the ``footprint`` columns (lod and
+    the major uv half-axis: 0, 1 or 3); out the 24 floats and two int64."""
     uniforms = 3 + (4 if n_strat > 0 else 0) + (1 if draw_rr else 0)
-    read = 4 * (ROWS_READ + 3 * 4 + 3 + uniforms) + 2
+    read = 4 * (ROWS_READ + 3 * 4 + 3 + uniforms + footprint) + 2
     return read + 4 * bounce_kernel.OUT_COLS + 2 * 8
+
+
+def footprint_columns(static) -> int:
+    """The footprint columns the kernel reads for a scene: lod and the major
+    uv half-axis (3), lod alone without anisotropy (1), none without mip
+    filtering or textured material fields (0)."""
+    if not (static.mip_textures and textures_mod.textured(static)):
+        return 0
+    return 3 if static.aniso_textures else 1
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -99,8 +113,8 @@ def held(records: list):
         records.append({
             "bounce": len(records) + 1, "route": route, "reason": reason, "lanes": n,
             "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": n * lane_bytes(path_mis._nee_strata(static), draws.u_rr is not None)
-            / HBM_BYTES_PER_S * 1e3,
+            "bound_ms": n * lane_bytes(path_mis._nee_strata(static), draws.u_rr is not None,
+                                       footprint_columns(static)) / HBM_BYTES_PER_S * 1e3,
             "differ": mismatches(out, want),
         })
         return out
@@ -176,17 +190,70 @@ def mixed_scene(width: int, height: int, sphere: bool = True):
                        regularization=True)
 
 
+def textured_scene(width: int, height: int, mip: bool = True, aniso: bool = True,
+                   seed: int = 7):
+    """Every material texture field in one box, with texels drawn from
+    ``seed``: a kiss quad with image base colour, metallic and roughness
+    (clearcoat, sheen, anisotropy), a normal-mapped GGX quad with an image
+    albedo, a lambertian quad with an image albedo, a dielectric quad and
+    a 2,208-face normal-mapped kiss sphere with image base colour and
+    roughness; images of 4 to 64 texels a side, regularization on. ``mip``
+    and ``aniso`` set the footprint (trilinear, and the anisotropic
+    probes)."""
+    import numpy as np
+
+    from ..examples.baseline_configs import cornell_box, make_mesh, make_sphere
+    from ..scene import description as D
+
+    rng = np.random.default_rng(seed)
+
+    def image(n, lo=0.0, hi=1.0):
+        data = rng.uniform(lo, hi, (n, n, 3)).astype(np.float32)
+        return D.ImageTexture(data=data, colorspace="linear")
+
+    bump = np.full((16, 16, 3), (0.5, 0.5, 1.0), np.float32)
+    bump[..., :2] += rng.uniform(-0.3, 0.3, (16, 16, 2)).astype(np.float32)
+    normals = D.ImageTexture(data=bump, colorspace="linear")
+    extra = [
+        make_mesh([-0.8, 0.0, 0.6], [0, 0.6, 0], [0.6, 0, 0], bsdf=D.KazenStandard(
+            base_color=image(8), metallic=image(16), roughness=image(32, 0.05, 0.9),
+            anisotropy=0.3, clearcoat=0.6, sheen=0.4)),
+        make_mesh([0.2, 0.0, 0.6], [0, 0.6, 0], [0.6, 0, 0], bsdf=D.NormalMap(
+            nested=D.GGX(albedo=image(8), roughness=0.3), normals=normals)),
+        make_mesh([-0.3, 1.3, 0.9], [0, 0.5, 0], [0.6, 0, 0],
+                  bsdf=D.Lambertian(albedo=image(4))),
+        make_mesh([0.2, 0.8, 0.6], [0, 0.6, 0], [0.6, 0, 0], bsdf=D.Dielectric()),
+    ]
+    ball = make_sphere([0.45, 0.35, -0.3], 0.3)
+    ball.bsdf = D.NormalMap(
+        nested=D.KazenStandard(base_color=image(64), roughness=image(8, 0.1, 0.6)),
+        normals=normals)
+    extra.append(ball)
+    scene = cornell_box(width=width, height=height, spp=1, extra_meshes=extra,
+                        regularization=True)
+    scene.mip_textures = mip
+    scene.aniso_textures = aniso
+    return scene
+
+
+TEXTURED = {"textured": {}, "textured_nomip": {"mip": False},
+            "textured_noaniso": {"aniso": False}}
+
+
 def main(config="4", size=None, device="cuda", sample: int = 0) -> dict:
-    """BASELINE config ``config`` (1, 2 or 4), or ``mixed`` / ``mixed_single``
-    (mixed_scene with and without its sphere), at ``size`` (w, h) where
-    given (mixed: 256x256 by default), one pass held; prints a line a
-    bounce and returns the summary with the records."""
+    """BASELINE config ``config`` (1 to 4), ``mixed`` / ``mixed_single``
+    (mixed_scene with and without its sphere), or ``textured`` (and its
+    TEXTURED variants: textured_scene), at ``size`` (w, h) where given
+    (mixed and textured: 256x256 by default), one pass held; prints a line
+    a bounce and returns the summary with the records."""
     from ..examples import baseline_configs as bc
     from ..scene.compiler import compile_scene
 
     dev = resolve_device(device)
     if str(config).startswith("mixed"):
         desc = mixed_scene(*(size or (256, 256)), sphere=config == "mixed")
+    elif config in TEXTURED:
+        desc = textured_scene(*(size or (256, 256)), **TEXTURED[config])
     else:
         desc = bc.config_scene(int(config), spp=1)
         if size is not None:
@@ -205,7 +272,8 @@ def main(config="4", size=None, device="cuda", sample: int = 0) -> dict:
 
 if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--config", default="4", help="1, 2, 4, mixed or mixed_single")
+    parser.add_argument("--config", default="4",
+                        help="1 to 4, mixed, mixed_single, or textured[_nomip|_noaniso]")
     parser.add_argument("--size", default=None, help="WxH (default: the config's own)")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--json", default=None)

@@ -9,12 +9,17 @@ material type's branch on every lane) or with the kernel of
 only), with one contract: ``ShadeOut``. The route adapts to what the scene
 and the call show (``route_reason``): the kernel for CUDA tensors of a scene
 in its class outside autograd, the plain version otherwise. On the kernel
-route a CUDA tensor launches the kernel or raises.
+route a CUDA tensor launches the kernel or raises. Image-textured material
+fields and the normalmap wrapper are template instances of the kernel,
+picked from the scene (``static.textured_fields``, ``btypes_present``):
+an untextured scene runs the instance without them.
 
-The kernel reads the material rows and the light tables packed here
-(``pack_tables``), once per compiled scene (``SceneArrays.shade_tables``),
-with torch operations on the scene's device; a scene whose material or
-light tensors were replaced or changed in place since is packed again.
+The kernel reads the material rows, their texture ids and nested rows, the
+texture nodes and the light tables packed here (``pack_tables``), once per
+compiled scene (``SceneArrays.shade_tables``), with torch operations on the
+scene's device; a scene whose material, texture or light tensors were
+replaced or changed in place since is packed again. The texel pool itself
+is read where the compiler put it.
 """
 from __future__ import annotations
 
@@ -36,13 +41,16 @@ from ..scene.compiler import (
     BSDF_LAMBERTIAN,
     BSDF_MIRROR,
     BSDF_NORMALMAP,
+    MAX_MIP_LEVELS,
 )
+from ..utils import metrics
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "bounce.cu")
 # every product and sum rounds on its own, as the plain version's ops do
 NVCC_FLAGS = ("-fmad=false",)
 SUPPORTED_BTYPES = (
     BSDF_DIFFUSE, BSDF_DIELECTRIC, BSDF_MIRROR, BSDF_LAMBERTIAN, BSDF_GGX, BSDF_KISS,
+    BSDF_NORMALMAP,
 )
 OUT_COLS = 24  # [p 3, nee_wi 3, smaxt, pd 3, li 3, throughput 3, eta, accum, contrib 3,
 #                 bsdf_pdf, discrete, alive]
@@ -51,7 +59,15 @@ MAT_FIELDS = ("metallic", "roughness", "anisotropy", "specular", "specular_tint"
               "clearcoat_roughness", "sheen", "sheen_tint", "int_ior", "ext_ior")
 LTRI_F = 18  # a light triangle's face_shade[:, 0:18]: [p0 p1 p2 n0 n1 n2]
 LINFO_F = 8  # a light's [radiance 3, inv_area, has_normals, 0, 0, 0]
+MAT_I = 8  # a material's [tex_base, tex_metallic, tex_roughness, tex_normal, nested, 0, 0, 0]
+TEX_I = 5 + MAX_MIP_LEVELS  # a texture node's [ttype, offset, width, height, n_levels,
+#                             mip_offset ...]
+TEX_F = 4  # a texture node's [uv_scale, const_color 3]
+# the kernel's bit of each material texture field (FIELD_* in the source)
+FIELD_BITS = {"base": 1, "metallic": 2, "roughness": 4, "normal": 8}
 
+# the device whose tensors the library's kernel takes
+KERNEL_DEVICE = "cuda"
 # replaces no TPU kernel: kazen_tpu's bounce body is XLA-fused elementwise code
 SHADE = CudaKernel("shade_bounce", "none (kazen_tpu/integrate/path_mis.py, XLA-fused bounce)")
 
@@ -119,12 +135,10 @@ def supported_reason(arrays, static) -> Tuple[bool, str]:
         return False, "integrator is not path_mis"
     if static.env_importance:
         return False, "env importance sampling enabled"
-    if BSDF_NORMALMAP in static.btypes_present:
-        return False, "normal map present"
     if any(t not in SUPPORTED_BTYPES for t in static.btypes_present):
         return False, "BSDF type outside the kernel's set"
-    if static.textured_fields:
-        return False, f"textured material field {', '.join(static.textured_fields)}"
+    if static.textured_fields and static.has_composite_textures:
+        return False, "composite texture nodes with textured material fields"
     return True, "supported"
 
 
@@ -162,6 +176,9 @@ def route_reason(arrays, static, tensors) -> Tuple[str, str]:
 @dataclasses.dataclass
 class ShadeTables:
     mats: torch.Tensor  # (M, 16)
+    mat_i: torch.Tensor  # (M, 8) int32
+    tex_i: torch.Tensor  # (T, 19) int64
+    tex_f: torch.Tensor  # (T, 4)
     ltris: torch.Tensor  # (max(L, 1) * maxLF, 18)
     linfo: torch.Tensor  # (max(L, 1), 8)
     lcdf: torch.Tensor  # (max(L, 1), maxLF + 1)
@@ -169,10 +186,15 @@ class ShadeTables:
     source: tuple  # ((tensor, its version) ...) the tables were packed from
 
 
+_MAT_IDS = ("tex_base", "tex_metallic", "tex_roughness", "tex_normal", "nested")
+_TEX_INTS = ("ttype", "offset", "width", "height", "n_levels")
+
+
 def _sources(arrays) -> tuple:
-    mt = arrays.materials
-    return (mt.btype, *_grad_tensors(arrays), arrays.light_faces, arrays.light_mesh,
-            arrays.mesh_has_normals)
+    mt, tex = arrays.materials, arrays.textures
+    return (mt.btype, *_grad_tensors(arrays), *(getattr(mt, k) for k in _MAT_IDS),
+            *(getattr(tex, k) for k in _TEX_INTS), tex.mip_offset, tex.uv_scale,
+            tex.const_color, arrays.light_faces, arrays.light_mesh, arrays.mesh_has_normals)
 
 
 def pack_tables(arrays) -> ShadeTables:
@@ -186,6 +208,15 @@ def pack_tables(arrays) -> ShadeTables:
         [mt.btype.to(f32)[:, None], mt.base_color.detach().to(f32),
          *(getattr(mt, k).detach().to(f32)[:, None] for k in MAT_FIELDS),
          torch.zeros((m, MAT_F - 4 - len(MAT_FIELDS)), dtype=f32, device=dev)], 1)
+    mat_i = torch.cat(
+        [torch.stack([getattr(mt, k) for k in _MAT_IDS], 1),
+         torch.zeros((m, MAT_I - len(_MAT_IDS)), dtype=torch.int64, device=dev)], 1)
+    tex = arrays.textures
+    tex_i = torch.cat(
+        [torch.stack([getattr(tex, k).to(torch.int64) for k in _TEX_INTS], 1),
+         tex.mip_offset.to(torch.int64)], 1)
+    tex_f = torch.cat([tex.uv_scale.detach().to(f32)[:, None],
+                       tex.const_color.detach().to(f32)], 1)
     lf = arrays.light_faces
     nl, maxlf = lf.shape
     ltris = arrays.face_shade.detach()[lf.reshape(-1)][:, :LTRI_F].to(f32)
@@ -194,7 +225,9 @@ def pack_tables(arrays) -> ShadeTables:
         [arrays.light_radiance.detach().to(f32), arrays.light_inv_area.detach().to(f32)[:, None],
          has_n[:, None], torch.zeros((nl, LINFO_F - 5), dtype=f32, device=dev)], 1)
     return ShadeTables(
-        mats=mats.contiguous(), ltris=ltris.contiguous(), linfo=linfo.contiguous(),
+        mats=mats.contiguous(), mat_i=mat_i.to(torch.int32).contiguous(),
+        tex_i=tex_i.contiguous(), tex_f=tex_f.contiguous(),
+        ltris=ltris.contiguous(), linfo=linfo.contiguous(),
         lcdf=arrays.light_cdf.detach().to(f32).contiguous(), maxlf=int(maxlf),
         source=tuple((t, t._version) for t in _sources(arrays)),
     )
@@ -240,9 +273,12 @@ class _Params(ctypes.Structure):
         ("u_rr", _P), ("u_pick", _P), ("u_tri", _P), ("u_a", _P), ("u_b", _P),
         ("s1", _P), ("s2", _P),
         ("mats", _P), ("ltris", _P), ("linfo", _P), ("lcdf", _P),
+        ("mat_i", _P), ("tex_i", _P), ("tex_f", _P), ("texels", _P),
+        ("lod", _P), ("maj_du", _P), ("maj_dv", _P),
         ("out", _P), ("pick", _P), ("cluster", _P), ("counts", _P),
     ] + [(name, ctypes.c_int) for name in (
-        "n", "L", "maxlf", "n_strat", "draw_rr", "regularization", "wi_order_b")
+        "n", "L", "maxlf", "n_strat", "draw_rr", "regularization", "wi_order_b",
+        "tex_fields", "footprint", "nmap")
     ] + [("trace_bias", ctypes.c_float), ("acc_scale", ctypes.c_float)]
 
 
@@ -272,9 +308,9 @@ def _lane(name, t, n, dev, dtype=torch.float32):
     return t.data_ptr(), t.stride(0)
 
 
-def _table(name, t, shape, dev):
-    if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape) or t.device != dev:
-        raise ValueError(f"tables.{name} must be float32 {tuple(shape)} on {dev}, got "
+def _table(name, t, shape, dev, dtype=torch.float32):
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or t.device != dev:
+        raise ValueError(f"tables.{name} must be {dtype} {tuple(shape)} on {dev}, got "
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
     if not t.is_contiguous():
         raise ValueError(f"tables.{name} must be contiguous")
@@ -282,14 +318,19 @@ def _table(name, t, shape, dev):
 
 
 def shade_cuda(tables: ShadeTables, static, rows, ray_o, ray_d, li, alive, throughput, eta,
-               bsdf_pdf, discrete, accum, draws: Draws) -> ShadeOut:
+               bsdf_pdf, discrete, accum, draws: Draws, texels=None,
+               footprint=(None, None)) -> ShadeOut:
     """The kernel on CUDA tensors: ``rows`` (40, N) from K1 (or a lane
     prefix of them, each row contiguous), the lane state
     after _shade_prologue (vectors may be strided views), the bounce's
-    uniforms (Russian roulette where ``draws.u_rr`` is given) -> ShadeOut."""
+    uniforms (Russian roulette where ``draws.u_rr`` is given) -> ShadeOut.
+    A scene with textured material fields also gives the texel pool
+    (``texels``, (P, 3)) and the footprint path_mis._texture_footprint
+    returns, ``(lod, (maj_du, maj_dv))``: (None, None) without mip
+    filtering, (lod, None) without anisotropy."""
     dev = rows.device
-    if dev.type != "cuda":
-        raise ValueError(f"the shade kernel takes CUDA tensors, got {dev}")
+    if dev.type != KERNEL_DEVICE:
+        raise ValueError(f"the shade kernel takes {KERNEL_DEVICE.upper()} tensors, got {dev}")
     n = ray_o.shape[0]
     if n >= 2**31:
         raise ValueError("too many lanes for one launch")
@@ -323,6 +364,14 @@ def shade_cuda(tables: ShadeTables, static, rows, ray_o, ray_d, li, alive, throu
     u = {k: draw(k, getattr(draws, k), (n,)) for k in ("u_rr", "u_pick", "u_tri", "u_a", "u_b",
                                                        "s1")}
     s2 = draw("s2", draws.s2, (n, 2))
+    fields = static.textured_fields
+    if fields and texels is None:
+        raise ValueError(f"textured material fields {fields} need the texel pool")
+    lod, aniso = footprint
+    foot = (lod, *(aniso or (None, None))) if fields else (None, None, None)
+    for k, t in zip(("lod", "maj_du", "maj_dv"), foot):
+        if t is not None and _lane(k, t, n, dev)[1] != 1:
+            raise ValueError(f"footprint column {k} must be contiguous")
     maxlf = tables.maxlf
     out = torch.empty((n, OUT_COLS), dtype=torch.float32, device=dev)
     pick = torch.empty(n, dtype=torch.int64, device=dev)
@@ -338,12 +387,19 @@ def shade_cuda(tables: ShadeTables, static, rows, ray_o, ray_d, li, alive, throu
         _table("ltris", tables.ltris, (nl * maxlf, LTRI_F), dev),
         _table("linfo", tables.linfo, (nl, LINFO_F), dev),
         _table("lcdf", tables.lcdf, (nl, maxlf + 1), dev),
+        _table("mat_i", tables.mat_i, (tables.mats.shape[0], MAT_I), dev, torch.int32),
+        _table("tex_i", tables.tex_i, (tables.tex_i.shape[0], TEX_I), dev, torch.int64),
+        _table("tex_f", tables.tex_f, (tables.tex_i.shape[0], TEX_F), dev),
+        _table("texels", texels, (texels.shape[0], 3), dev) if fields else None,
+        *(t.data_ptr() if t is not None else None for t in foot),
         out.data_ptr(), pick.data_ptr(), cluster.data_ptr(), counts.data_ptr(),
         n, static.num_lights, maxlf, n_strat, int(draws.u_rr is not None),
         int(static.regularization),
         # to_local(-ray_d)'s reduce order: PyTorch reduces the product over
         # its fastest dimension where ray_d's components are its fastest
         int(not ray_d.stride(1) < ray_d.stride(0)),
+        sum(FIELD_BITS[k] for k in fields), sum(t is not None for t in foot[:2]),
+        int(BSDF_NORMALMAP in static.btypes_present),
         static.trace_bias, static.accumulated_roughness,
     )
     if n > 0:
@@ -351,6 +407,8 @@ def shade_cuda(tables: ShadeTables, static, rows, ray_o, ray_d, li, alive, throu
         with torch.cuda.device(dev):
             code = lib.kz_shade_bounce(ctypes.byref(prm), torch.cuda.current_stream(dev).cuda_stream)
         SHADE.launches += 1
+        for k in fields:
+            metrics.texture_lookup(k, "kernel")
         if code != 0:
             raise RuntimeError(
                 f"{SHADE.name} launch failed: {lib.kz_error_string(code).decode()} ({code})")

@@ -44,10 +44,31 @@
 // with torch.stack are not). The one site whose layout depends on an input,
 // to_local(-ray_d), takes it from the wrapper (wi_order_b).
 //
+// Image-textured material fields and the normal map are template instances
+// (TEX, NMAP) picked from the scene (shade/bounce_kernel.py): an untextured
+// scene runs the instance without them. TEX fetches each textured field of
+// the lane's material once, at the top, from the flat texel pool
+// (textures._eval_leaf: bilinear with periodic wrap, the v-flip and uv
+// scale; trilinear across the mip chain at the footprint's lod; the mean of
+// the anisotropic probes), in the plain version's order of operations.
+// NMAP resolves the normalmap wrapper as bsdf.make_ctx does: the nested
+// material's row, the frame perturbed by the tangent-space normal (its
+// reduce orders taken from its operands' layouts, as above), the
+// directions re-expressed in it, and the unperturbed fallback where the
+// mapped normal faces away from wi. The footprint (lod and the major uv
+// half-axis) comes in as columns, computed by path_mis._texture_footprint.
+// The untextured instance keeps 96 registers and no spill; TEX takes 112,
+// TEX with NMAP 120 (no spill); NMAP alone 96 with 12 bytes of spill.
+//
+// Everything above the launches' banner compiles for the host too, against
+// a header that defines the CUDA names for one host thread:
+// tests/shade_host.py runs the kernel body on the CPU.
+//
 // Not used, and why: shared memory (the tables are read through the cache
 // and each lane reads its own rows once); warp-level material sorting (the
 // lanes arrive in the permute's packet order, which groups clusters, and so
-// mostly materials, already); tensor cores (f32 bit-exact contract).
+// mostly materials, already); tensor cores (f32 bit-exact contract); CUDA
+// texture objects (their filtering is not the plain version's arithmetic).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -83,11 +104,21 @@ struct Params {
   const float* ltris;  // (Lr * maxlf, 18) [p0 p1 p2 n0 n1 n2]
   const float* linfo;  // (Lr, 8) [radiance 3, inv_area, has_n]
   const float* lcdf;   // (Lr, maxlf + 1)
+  const int* mat_i;    // (M, 8) [tex_base, tex_metallic, tex_roughness, tex_normal, nested]
+  const long long* tex_i;  // (T, 19) [ttype, offset, width, height, n_levels, mip_offset 14]
+  const float* tex_f;      // (T, 4) [uv_scale, const rgb]
+  const float* texels;     // (P, 3)
+  const float* lod;        // (n,) the footprint's lod, or null
+  const float* maj_du;     // (n,) its major uv half-axis, or null
+  const float* maj_dv;
   float* out;          // (n, 24)
   long long* pick;     // (n,)
   long long* cluster;  // (n,)
   unsigned long long* counts;  // (2,) += shadow rays, path rays
   int n, L, maxlf, n_strat, draw_rr, regularization, wi_order_b;
+  int tex_fields;  // textured fields: FIELD_* bits
+  int footprint;   // 0 level-0 bilinear, 1 trilinear at lod, 2 and the probes
+  int nmap;        // a normalmap material is present
   float trace_bias, acc_scale;
 };
 
@@ -98,6 +129,12 @@ constexpr int OUT_COLS = 24;
 constexpr int LTRI_F = 18;
 constexpr int LINFO_F = 8;
 constexpr int MAT_F = 16;
+constexpr int MAT_I = 8;
+constexpr int TEX_I = 5 + 14;  // + scene/compiler.py's MAX_MIP_LEVELS
+constexpr int TEX_F = 4;
+constexpr int TEX_IMAGE = 0, TEX_CONSTANT = 1;
+constexpr int N_ANISO_PROBES = 4;
+enum { FIELD_BASE = 1, FIELD_METALLIC = 2, FIELD_ROUGHNESS = 4, FIELD_NORMAL = 8 };
 constexpr double PI_D = 3.14159265358979323846;
 // Python floats as PyTorch hands them to a kernel: rounded once to f32
 constexpr float INV_PI = (float)(1.0 / PI_D);
@@ -106,7 +143,8 @@ constexpr float TWO_PI = (float)(2.0 * PI_D);
 constexpr float PI_4 = (float)(PI_D / 4.0);
 constexpr float PI_2 = (float)(PI_D / 2.0);
 
-enum { DIFFUSE = 0, DIELECTRIC = 1, MIRROR = 2, LAMBERTIAN = 3, GGX = 4, KISS = 8 };
+enum { DIFFUSE = 0, DIELECTRIC = 1, MIRROR = 2, LAMBERTIAN = 3, GGX = 4, KISS = 8,
+       NORMALMAP = 9 };
 
 // ---------------------------------------------------------------------------
 // scalars with PyTorch's semantics
@@ -559,6 +597,103 @@ __device__ Sample bsdf_sample(const Mat& mp, V3 wi, float s1, float s2a, float s
 }
 
 // ---------------------------------------------------------------------------
+// image textures (shade/textures.py), a leaf node over the flat texel pool
+// ---------------------------------------------------------------------------
+
+// torch.minimum: NaN propagates
+__device__ __forceinline__ float nanmin(float a, float b) {
+  return isnan(a) ? a : (isnan(b) ? b : fminf(a, b));
+}
+// torch.remainder of int64: the sign of the divisor
+__device__ __forceinline__ long long pymod(long long a, long long b) {
+  long long r = a % b;
+  return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
+}
+
+// _bilinear_wh: a bilinear fetch at texel coordinates (x, y), periodic wrap
+__device__ V3 bilinear(const float* texels, long long off, long long w, long long h, float x,
+                       float y) {
+  x = x - 0.5f;
+  y = y - 0.5f;
+  const float x0 = floorf(x), y0 = floorf(y);
+  const float fx = x - x0, fy = y - y0;
+  long long x0i = (long long)x0, y0i = (long long)y0;
+  const long long x1i = pymod(x0i + 1, w), y1i = pymod(y0i + 1, h);
+  x0i = pymod(x0i, w);
+  y0i = pymod(y0i, h);
+  const float* c00 = texels + 3 * (off + y0i * w + x0i);
+  const float* c10 = texels + 3 * (off + y0i * w + x1i);
+  const float* c01 = texels + 3 * (off + y1i * w + x0i);
+  const float* c11 = texels + 3 * (off + y1i * w + x1i);
+  const float gx = 1.0f - fx, gy = 1.0f - fy;
+  float r[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    r[c] = (((__ldg(c00 + c) * gx) * gy + (__ldg(c10 + c) * fx) * gy) +
+            (__ldg(c01 + c) * gx) * fy) + (__ldg(c11 + c) * fx) * fy;
+  return {r[0], r[1], r[2]};
+}
+
+// _bilinear_level: the chain's level l, max(1, w >> l) x max(1, h >> l)
+__device__ __forceinline__ V3 bilinear_level(const float* texels, const long long* ti,
+                                             long long level, float u, float v) {
+  const long long wl = ti[2] >> level, hl = ti[3] >> level;
+  const long long w = wl < 1 ? 1 : wl, h = hl < 1 ? 1 : hl;
+  return bilinear(texels, ti[5 + level], w, h, u * (float)w, v * (float)h);
+}
+
+// _eval_leaf of node tid at (uvx, uvy) with the lane's footprint: an image
+// (bilinear, trilinear at lod, or the mean of the probes along the major
+// half-axis), a constant, or 0 for a composite node
+__device__ V3 eval_leaf(const Params& p, long long tid, float uvx, float uvy, float lod,
+                        float adu, float adv) {
+  const long long* ti = p.tex_i + tid * TEX_I;
+  const float* tf = p.tex_f + tid * TEX_F;
+  const float uvs = tf[0];  // uv scale
+  const long long w = ti[2], h = ti[3];
+  V3 img;
+  if (p.footprint == 0) {
+    const float u = uvx * uvs;
+    const float v = (1.0f - uvy) * uvs;
+    img = bilinear(p.texels, ti[1], w, h, u * (float)w, v * (float)h);
+  } else {
+    const long long n_levels = ti[4];
+    const float res = (float)(w > h ? w : h);
+    float lam = lod + log2f(res * clamp_lo(uvs, (float)1e-9));
+    lam = nanmin(clamp_lo(lam, 0.0f), (float)(n_levels - 1));
+    const long long l0 = (long long)floorf(lam);
+    const long long l1 = l0 + 1 < n_levels - 1 ? l0 + 1 : n_levels - 1;
+    const float f = lam - (float)l0;
+    const float g = 1.0f - f;
+    // trilinear(uv + t * aniso), t in [-1, 1] as f32; one probe without it
+    const int probes = p.footprint == 2 ? N_ANISO_PROBES : 1;
+    img = v3(0.0f, 0.0f, 0.0f);
+    for (int k = 0; k < probes; ++k) {
+      const float t = (float)(2.0 * k / (N_ANISO_PROBES - 1) - 1.0);
+      const float pu = probes > 1 ? uvx + t * adu : uvx;
+      const float pv = probes > 1 ? uvy + t * adv : uvy;
+      const float u = pu * uvs;
+      const float v = (1.0f - pv) * uvs;
+      const V3 a = bilinear_level(p.texels, ti, l0, u, v);
+      const V3 b = bilinear_level(p.texels, ti, l1, u, v);
+      const V3 tri = add(scale(a, g), scale(b, f));
+      img = probes > 1 ? add(img, tri) : tri;
+    }
+    if (probes > 1) img = scale(img, 1.0f / N_ANISO_PROBES);
+  }
+  const long long tt = ti[0];
+  if (tt == TEX_IMAGE) return img;
+  if (tt == TEX_CONSTANT) return v3(tf[1], tf[2], tf[3]);
+  return v3(0.0f, 0.0f, 0.0f);
+}
+
+// eval_texture of a material field: its node where tex_id >= 0, else const
+__device__ __forceinline__ V3 field_value(const Params& p, int tex_id, V3 cst, float uvx,
+                                          float uvy, float lod, float adu, float adv) {
+  return tex_id >= 0 ? eval_leaf(p, tex_id, uvx, uvy, lod, adu, adv) : cst;
+}
+
+// ---------------------------------------------------------------------------
 // the stage
 // ---------------------------------------------------------------------------
 
@@ -567,6 +702,7 @@ __device__ __forceinline__ V3 ld(const float* p, long long i, long long sl, long
   return {q[0], q[sc], q[2 * sc]};
 }
 
+template <bool TEX, bool NMAP>
 __global__ void __launch_bounds__(THREADS) shade_kernel(const Params p) {
   const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
   const bool active = i < p.n;
@@ -633,8 +769,59 @@ __global__ void __launch_bounds__(THREADS) shade_kernel(const Params p) {
     fr.s = sel(uv_ok, s_uv, fb_s);
     fr.t = sel(uv_ok, t_uv, fb_t);
     fr.n = sel(uv_ok, sh_n, n_fb);
-    const Mat mp = load_mat(p.mats, material);
     const V3 wi_local = to_local(p.wi_order_b != 0, fr, neg(d));
+    // the lane's material: a normalmap's nested row (bsdf.make_ctx's mp_eff)
+    Mat mp = load_mat(p.mats, material);
+    long long eff = material;
+    bool is_nm = false;
+    if (NMAP && mp.btype == NORMALMAP) {
+      is_nm = true;
+      eff = p.mat_i[material * MAT_I + 4];
+      mp = load_mat(p.mats, eff);
+    }
+    // the hit's uv (_prepare_core) and footprint, for the texture fetches
+    float uvx = 0.0f, uvy = 0.0f, lod = 0.0f, adu = 0.0f, adv = 0.0f;
+    if (TEX) {
+      uvx = has_uv ? (b0 * uv0x + b1 * uv1x) + b2 * uv2x : u;
+      uvy = has_uv ? (b0 * uv0y + b1 * uv1y) + b2 * uv2y : v;
+      if (p.footprint > 0) lod = p.lod[i];
+      if (p.footprint > 1) {
+        adu = p.maj_du[i];
+        adv = p.maj_dv[i];
+      }
+      // each textured field once: base for lambertian, GGX and kiss (diffuse
+      // keeps its row's albedo), metallic and roughness for kiss
+      const int* ids = p.mat_i + eff * MAT_I;
+      const bool kiss = mp.btype == KISS;
+      if ((p.tex_fields & FIELD_BASE) &&
+          (kiss || mp.btype == GGX || mp.btype == LAMBERTIAN))
+        mp.base = field_value(p, ids[0], mp.base, uvx, uvy, lod, adu, adv);
+      if ((p.tex_fields & FIELD_METALLIC) && kiss)
+        mp.metallic = field_value(p, ids[1], v3(mp.metallic, mp.metallic, mp.metallic), uvx,
+                                  uvy, lod, adu, adv).x;
+      if ((p.tex_fields & FIELD_ROUGHNESS) && kiss)
+        mp.roughness = field_value(p, ids[2], v3(mp.roughness, mp.roughness, mp.roughness),
+                                   uvx, uvy, lod, adu, adv).x;
+    }
+    // the normal map's frame (bsdf.make_ctx); the orders are its operands'
+    // layouts: n_t, wi and cross products are stacked (DOT_A), what comes
+    // through sh_frame.to_world takes the hit rows' strided layout (DOT_B)
+    bool perturbed = false;
+    Frame pf = fr;
+    V3 wi_eff = wi_local;
+    if (NMAP && is_nm) {
+      V3 rgb = v3(0.5f, 0.5f, 1.0f);
+      if (TEX && (p.tex_fields & FIELD_NORMAL))
+        rgb = field_value(p, p.mat_i[material * MAT_I + 3], rgb, uvx, uvy, lod, adu, adv);
+      const V3 n_t = v3(2.0f * rgb.x - 1.0f, 2.0f * rgb.y - 1.0f, 2.0f * rgb.z - 1.0f);
+      const bool shortcut = wi_local.z > 0.0f && dot<DOT_A>(n_t, wi_local) <= 0.0f;
+      const V3 dpdu_h = sel(uv_ok, dpdu, fb_s);
+      pf.n = normalize<DOT_B>(to_world(fr, normalize<DOT_A>(n_t)));
+      pf.s = normalize<DOT_B>(sub(dpdu_h, scale(pf.n, dot<DOT_B>(pf.n, dpdu_h))));
+      pf.t = normalize<DOT_A>(cross(pf.n, pf.s));
+      perturbed = !shortcut;
+      if (perturbed) wi_eff = to_local(true, pf, to_world(fr, wi_local));
+    }
 
     V3 li = ld(p.li, i, p.li_sl, p.li_sc);
     V3 thr = ld(p.thr, i, p.thr_sl, p.thr_sc);
@@ -709,9 +896,19 @@ __global__ void __launch_bounds__(THREADS) shade_kernel(const Params p) {
       nee_wi = wi;
       const float nee_maxt = dist - p.trace_bias;
       const V3 wo_local = to_local(false, fr, nee_wi);
+      V3 wo_eff = wo_local;
+      bool flipped = false;  // the perturbation flips wo's hemisphere
+      if (NMAP && perturbed) {
+        wo_eff = to_local(true, pf, to_world(fr, wo_local));
+        flipped = wo_local.z * wo_eff.z <= 0.0f;
+      }
       V3 f;
       float pdf_b;
-      bsdf_eval_pdf(mp, wi_local, wo_local, accum, f, pdf_b);
+      bsdf_eval_pdf(mp, wi_eff, wo_eff, accum, f, pdf_b);
+      if (flipped) {
+        f = v3(0.0f, 0.0f, 0.0f);
+        pdf_b = 0.0f;
+      }
       const float w_light = power_heuristic(pdf, pdf_b);
       contrib = mask3(alive, scale(mul(mul(thr, scale(ls, (float)p.n_strat)), f), w_light));
       shadow = alive && (contrib.x != 0.0f || contrib.y != 0.0f || contrib.z != 0.0f);
@@ -725,7 +922,17 @@ __global__ void __launch_bounds__(THREADS) shade_kernel(const Params p) {
     }
 
     // (6) BSDF sample
-    const Sample res = bsdf_sample(mp, wi_local, p.s1[i], p.s2[2 * i], p.s2[2 * i + 1], accum);
+    Sample res = bsdf_sample(mp, wi_eff, p.s1[i], p.s2[2 * i], p.s2[2 * i + 1], accum);
+    if (NMAP && perturbed) {
+      // back through the perturbed frame; a hemisphere flip gets nothing
+      const V3 wo_back = to_local(true, fr, to_world(pf, res.wo));
+      const bool flipped = wo_back.z * res.wo.z <= 0.0f;
+      res.wo = wo_back;
+      if (flipped) {
+        res.w = v3(0.0f, 0.0f, 0.0f);
+        res.pdf = 0.0f;
+      }
+    }
     thr = alive ? mul(thr, res.w) : thr;
     eta = alive ? eta * res.eta : eta;
     alive = alive && (res.w.x > 0.0f || res.w.y > 0.0f || res.w.z > 0.0f);
@@ -753,10 +960,23 @@ __global__ void __launch_bounds__(THREADS) shade_kernel(const Params p) {
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// the launches (nvcc only)
+// ---------------------------------------------------------------------------
+
 extern "C" int kz_shade_bounce(const Params* prm, void* stream) {
   if (prm->n <= 0) return 0;
   const long long blocks = ((long long)prm->n + THREADS - 1) / THREADS;
-  shade_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(*prm);
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool tex = prm->tex_fields != 0, nmap = prm->nmap != 0;
+  if (tex && nmap)
+    shade_kernel<true, true><<<(unsigned)blocks, THREADS, 0, s>>>(*prm);
+  else if (tex)
+    shade_kernel<true, false><<<(unsigned)blocks, THREADS, 0, s>>>(*prm);
+  else if (nmap)
+    shade_kernel<false, true><<<(unsigned)blocks, THREADS, 0, s>>>(*prm);
+  else
+    shade_kernel<false, false><<<(unsigned)blocks, THREADS, 0, s>>>(*prm);
   return (int)cudaGetLastError();
 }
 

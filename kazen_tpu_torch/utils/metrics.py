@@ -15,8 +15,8 @@ can be put in its span by correlation id. A ``render.pass`` span on the
 card records a CUDA event at its start and end; nothing waits on them until
 ``collect()``, which makes the one synchronize and returns the spans and
 counters (host reads by site, material texture lookups by field and route,
-bounces by shade route, sampler draws by route, CUDA kernel launches, rays
-traced) and clears them. ``write_chrome_trace``
+bounces by shade route and the plain ones by reason, sampler draws by
+route, CUDA kernel launches, rays traced) and clears them. ``write_chrome_trace``
 writes what ``collect()`` returned as a Chrome trace (the CLI's ``--trace
 FILE``). The tracer keeps one record for the
 process and is not thread-safe.
@@ -89,9 +89,9 @@ class Span:
 class _Record:
     """What the tracer recorded: the open spans' stack and, since tracing
     began or the last collect(), the closed spans, the host reads by site,
-    the texture lookups by field and route, the bounces by shade route, the
-    sampler draws by route, the ray tensors and the kernels' launch counts
-    at the start."""
+    the texture lookups by field and route, the bounces by shade route and
+    the plain ones by reason, the sampler draws by route, the ray tensors
+    and the kernels' launch counts at the start."""
 
     def __init__(self):
         self.offset_ns = time.time_ns() - time.perf_counter_ns()
@@ -101,6 +101,7 @@ class _Record:
         self.host_reads = {}
         self.texture_lookups = {}
         self.shade_route = {}
+        self.shade_plain_reason = {}
         self.sampler_route = {}
         self.rays = []
         self.launches0 = _launch_counts()
@@ -202,20 +203,24 @@ def sync(site: str, reads: bool = True):
 
 def texture_lookup(field: str, route: str) -> None:
     """Count one material texture lookup of ``field`` ("base", "metallic",
-    "roughness", "normal") by the route shade/bsdf.py chose for it:
-    "constant" (no material textures the field: the row's constant, no
-    fetch) or "image" (the texture graph, eval_texture)."""
+    "roughness", "normal") by its route: "constant" (no material textures
+    the field: the row's constant, no fetch) or "image" (the texture graph,
+    eval_texture), as shade/bsdf.py chose for it, or "kernel" (a shade
+    kernel launch that fetched the field from its image, once a bounce)."""
     if _on:
         by_route = _rec.texture_lookups.setdefault(field, {"constant": 0, "image": 0})
-        by_route[route] += 1
+        by_route[route] = by_route.get(route, 0) + 1
 
 
-def shade_route(route: str) -> None:
+def shade_route(route: str, reason: str) -> None:
     """Count one bounce's shade stage by the route integrate/path_mis.py
     took: "kernel" (shade/bounce_kernel.py's CUDA kernel) or "plain"
-    (path_mis._shade_plain)."""
+    (path_mis._shade_plain); a plain bounce also by ``reason``, the words of
+    bounce_kernel.route_reason (``shade_plain_reason``)."""
     if _on:
         _rec.shade_route[route] = _rec.shade_route.get(route, 0) + 1
+        if route == "plain":
+            _rec.shade_plain_reason[reason] = _rec.shade_plain_reason.get(reason, 0) + 1
 
 
 def sampler_route(route: str) -> None:
@@ -238,18 +243,19 @@ def collect() -> dict:
     is cleared: ``spans`` (closed spans, in the order they closed),
     ``host_reads`` ({site: count}), ``texture_lookups`` ({field: {route:
     count}}), ``shade_route`` and ``sampler_route`` ({route: count}),
-    ``launches`` ({CUDA kernel: launches since}), ``rays`` (their sum). One
+    ``shade_plain_reason`` ({reason: count}), ``launches`` ({CUDA kernel: launches since}), ``rays`` (their sum). One
     synchronize where a span recorded CUDA events or a ray count lives on
     the card. Spans still open go to the next collect()."""
     global _rec
     rec = _rec
     if rec is None:
         return {"spans": [], "host_reads": {}, "texture_lookups": {}, "shade_route": {},
-                "sampler_route": {}, "launches": {}, "rays": 0.0}
+                "shade_plain_reason": {}, "sampler_route": {}, "launches": {}, "rays": 0.0}
     spans, rec.spans = rec.spans, []
     reads, rec.host_reads = rec.host_reads, {}
     lookups, rec.texture_lookups = rec.texture_lookups, {}
     routes, rec.shade_route = rec.shade_route, {}
+    reasons, rec.shade_plain_reason = rec.shade_plain_reason, {}
     draws, rec.sampler_route = rec.sampler_route, {}
     counts, rec.rays = rec.rays, []
     launches0, rec.launches0 = rec.launches0, _launch_counts()
@@ -263,8 +269,8 @@ def collect() -> dict:
                 if n != launches0.get(k, 0)}
     total = float(torch.stack([r.double() for r in counts]).sum()) if counts else 0.0
     return {"spans": spans, "host_reads": reads, "texture_lookups": lookups,
-            "shade_route": routes, "sampler_route": draws, "launches": launches,
-            "rays": total}
+            "shade_route": routes, "shade_plain_reason": reasons, "sampler_route": draws,
+            "launches": launches, "rays": total}
 
 
 def write_chrome_trace(path: str, collected: dict) -> None:
@@ -284,6 +290,7 @@ def write_chrome_trace(path: str, collected: dict) -> None:
     other = {"clock": "unix", "host_reads": collected["host_reads"],
              "texture_lookups": collected["texture_lookups"],
              "shade_route": collected["shade_route"],
+             "shade_plain_reason": collected["shade_plain_reason"],
              "sampler_route": collected["sampler_route"],
              "launches": collected["launches"], "rays": collected["rays"]}
     with open(path, "w") as f:

@@ -17,6 +17,9 @@ from kazen_tpu_torch.samplers import streams
 from kazen_tpu_torch.scene import description as D
 from kazen_tpu_torch.scene.compiler import compile_scene
 from kazen_tpu_torch.shade import bounce_kernel as bk
+from kazen_tpu_torch.utils import metrics
+
+import shade_host
 
 try:  # the port's tests' torch-thread policy; the card's machine has no JAX
     import torch_port_helpers  # noqa: F401
@@ -66,27 +69,54 @@ def _checker():
     return D.ImageTexture(data=img, colorspace="linear")
 
 
-@pytest.mark.parametrize("case, reason", [
-    ("textured field", "textured material field base"),
-    ("normal map", "normal map present"),
-    ("env importance", "env importance sampling enabled"),
-    ("lobe outside the set", "BSDF type outside the kernel's set"),
-])
-def test_scene_exclusions_take_the_plain_route(case, reason):
+def _scene_case(case):
+    """con-2 with one change, by name."""
     if case == "textured field":
-        desc = con2(base_color=_checker())
-    elif case == "normal map":
+        return con2(base_color=_checker())
+    if case == "normal map":
         desc = con2()
         desc.meshes[-1].bsdf = D.NormalMap(nested=desc.meshes[-1].bsdf, normals=_checker())
-    elif case == "env importance":
-        desc = con2(importance=True)
-    else:
-        desc = con2()
-        desc.meshes[-1].bsdf = D.RoughConductor()
-    arrays, static = compile_scene(desc, device="cpu", megakernel=False)
+        return desc
+    if case == "composite texture":
+        return con2(base_color=D.ColorRamp(input=_checker(), min=0.2, max=0.8))
+    if case == "env importance":
+        return con2(importance=True)
+    desc = con2()
+    desc.meshes[-1].bsdf = {"roughconductor": D.RoughConductor, "roughplastic": D.RoughPlastic,
+                            "roughdielectric": D.RoughDielectric}[case]()
+    return desc
+
+
+@pytest.mark.parametrize("case, reason", [
+    ("composite texture", "composite texture nodes with textured material fields"),
+    ("env importance", "env importance sampling enabled"),
+    ("roughconductor", "BSDF type outside the kernel's set"),
+    ("roughplastic", "BSDF type outside the kernel's set"),
+    ("roughdielectric", "BSDF type outside the kernel's set"),
+])
+def test_scene_exclusions_take_the_plain_route(case, reason):
+    arrays, static = compile_scene(_scene_case(case), device="cpu", megakernel=False)
     assert bk.supported_reason(arrays, static) == (False, reason)
     assert bk.route_reason(arrays, static, (_Lane("cuda"),)) == ("plain", reason)
     assert arrays.shade_tables is None
+
+
+@pytest.mark.parametrize("case", ["textured field", "normal map", "config 3", "textured"])
+def test_textured_and_normal_mapped_scenes_take_the_kernel(case):
+    """Image-textured material fields and the normalmap wrapper are in the
+    kernel's class: config 3 (an image base colour and a normal-mapped
+    kiss), every texture field (textured_scene), and con-2 with either."""
+    if case == "config 3":
+        desc = bc.at_size(bc.config_scene(3, spp=1), *CON2_SIZE)
+    elif case == "textured":
+        desc = shade_check.textured_scene(*CON2_SIZE)
+    else:
+        desc = _scene_case(case)
+    arrays, static = compile_scene(desc, device="cpu", megakernel=False)
+    assert static.textured_fields and not static.has_composite_textures
+    assert bk.supported_reason(arrays, static) == (True, "supported")
+    assert bk.route_reason(arrays, static, (_Lane("cuda"),)) == ("kernel", "supported")
+    assert arrays.shade_tables is not None
 
 
 @pytest.mark.parametrize("case, reason", [
@@ -124,6 +154,25 @@ def test_packing_round_trips_to_the_material_rows(con2_scene):
     assert torch.equal(tb.linfo[:, 4] > 0, arrays.mesh_has_normals[arrays.light_mesh])
     assert torch.equal(tb.lcdf, arrays.light_cdf)
     assert tb.maxlf == lf.shape[1]
+
+
+def test_packing_round_trips_to_the_texture_ids_and_nodes():
+    """Config 3: each material's texture ids and nested row, and each
+    texture node's type, offsets, size, levels, mip offsets, uv scale and
+    constant, as the kernel reads them."""
+    arrays, _ = compile_scene(bc.at_size(bc.config_scene(3, spp=1), *CON2_SIZE), device="cpu",
+                              megakernel=False)
+    tb, mt, tex = arrays.shade_tables, arrays.materials, arrays.textures
+    for col, name in enumerate(("tex_base", "tex_metallic", "tex_roughness", "tex_normal",
+                                "nested")):
+        assert torch.equal(tb.mat_i[:, col].to(torch.int64), getattr(mt, name)), name
+    assert (mt.nested >= 0).any() and (mt.tex_normal >= 0).any() and (mt.tex_base >= 0).any()
+    for col, name in enumerate(("ttype", "offset", "width", "height", "n_levels")):
+        assert torch.equal(tb.tex_i[:, col], getattr(tex, name)), name
+    assert torch.equal(tb.tex_i[:, 5:], tex.mip_offset)
+    assert torch.equal(tb.tex_f[:, 0], tex.uv_scale) and torch.equal(tb.tex_f[:, 1:],
+                                                                      tex.const_color)
+    assert tb.tex_i.shape[1] == bk.TEX_I and tb.mat_i.shape[1] == bk.MAT_I
 
 
 def test_tables_follow_a_swapped_or_edited_parameter(con2_scene):
@@ -276,6 +325,81 @@ def test_shade_check_rehearses_on_the_cpu(con2_scene):
     assert out["shade_route"] == {"plain": static.max_depth} and out["kernel_launches"] == 0
     assert {r["reason"] for r in res["bounces"]} == {"CPU tensors"}
     assert shade_check.lane_bytes(1, True) == 4 * (31 + 12 + 3 + 8) + 2 + 4 * 24 + 16
+    assert shade_check.lane_bytes(1, False, 3) == shade_check.lane_bytes(1, True) + 4 * 2
+    assert shade_check.footprint_columns(static) == 0
+
+
+@pytest.mark.parametrize("mip, aniso, columns", [(True, True, 3), (True, False, 1),
+                                                  (False, True, 0)])
+def test_footprint_columns_follow_the_scene(mip, aniso, columns):
+    """The kernel reads lod and the major uv half-axis with anisotropic
+    mip filtering, lod alone without anisotropy, no column without mip
+    filtering."""
+    desc = shade_check.textured_scene(8, 8, mip=mip, aniso=aniso)
+    _, static = compile_scene(desc, device="cpu", megakernel=False)
+    assert shade_check.footprint_columns(static) == columns
+
+
+# ---------------------------------------------------------------------------
+# the kernel's source on the host
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def host_library(tmp_path_factory):
+    return shade_host.build(tmp_path_factory.mktemp("shade_host"))
+
+
+HOST_CASES = {
+    "con2": lambda: con2(spp=1, size=(48, 27)),
+    "config3": lambda: bc.at_size(bc.config_scene(3, spp=1), 48, 27),
+    "mixed": lambda: shade_check.mixed_scene(40, 40, sphere=True),
+    **{name: (lambda name=name: shade_check.textured_scene(40, 40, **kw))
+       for name, kw in shade_check.TEXTURED.items()},
+}
+
+
+def _close_lanes(got, want):
+    """Lanes of each ShadeOut column off by more than 1e-5 + 1e-3 |want|
+    (NaN matching NaN)."""
+    out = {}
+    for name in shade_check.COLUMNS[:14]:
+        a, b = (getattr(o, name).double().reshape(getattr(o, name).shape[0], -1)
+                for o in (got, want))
+        ok = torch.isclose(a, b, rtol=1e-3, atol=1e-5) | (torch.isnan(a) & torch.isnan(b))
+        out[name] = int((~ok.all(1)).sum())
+    return out
+
+
+@pytest.mark.parametrize("case", list(HOST_CASES))
+def test_kernel_source_matches_plain_on_the_host(case, host_library, monkeypatch):
+    """The kernel's body, built for the host and run through the wrapper and
+    path_mis._shade's kernel route on CPU lanes, against _shade_plain on
+    every bounce of a pass: every column within 1e-5 + 1e-3 |plain| on all
+    but 1% of the lanes (the CPU's reduce orders and libm differ from the
+    card's, which flips a lane near a threshold), every bounce on the
+    kernel route, a textured field counted once a bounce."""
+    shade_host.kernel_on_host(monkeypatch, host_library)
+    arrays, static = compile_scene(HOST_CASES[case](), device="cpu", megakernel=False)
+    off, routed = [], path_mis._shade
+
+    def held(scene, st_, state, li, alive, draws):
+        got = routed(scene, st_, state, li, alive, draws)
+        off.append((_close_lanes(got, path_mis._shade_plain(scene, st_, state, li, alive,
+                                                            draws)), got.p.shape[0]))
+        return got
+
+    monkeypatch.setattr(path_mis, "_shade", held)
+    before = bk.SHADE.launches
+    metrics.collect()
+    with metrics.tracing():
+        render_t.render(arrays, static, spp=1, device="cpu")
+    got = metrics.collect()
+    assert got["shade_route"] == {"kernel": static.max_depth}
+    assert bk.SHADE.launches - before == static.max_depth == len(off)
+    for field in static.textured_fields:
+        assert got["texture_lookups"][field]["kernel"] == static.max_depth
+    for bounce, (differ, n) in enumerate(off, 1):
+        assert max(differ.values()) <= 0.01 * n, (bounce, differ)
 
 
 # ---------------------------------------------------------------------------
@@ -288,6 +412,10 @@ CARD_CASES = {
     "config2_256": lambda: bc.config_scene(2, spp=1),
     "mixed_multi": lambda: shade_check.mixed_scene(256, 256, sphere=True),
     "mixed_single": lambda: shade_check.mixed_scene(128, 128, sphere=False),
+    "config3_512": lambda: bc.config_scene(3, spp=1),
+    "config3_2160p": lambda: bc.at_size(bc.config_scene(3, spp=1), 3840, 2160),
+    **{name: (lambda name=name: shade_check.textured_scene(256, 256, **kw))
+       for name, kw in shade_check.TEXTURED.items()},
 }
 
 

@@ -69,8 +69,8 @@ def test_tracer_off_records_and_touches_nothing(what, scenes, monkeypatch):
     run(what, scenes)
     monkeypatch.undo()
     assert metrics.collect() == {"spans": [], "host_reads": {}, "texture_lookups": {},
-                                 "shade_route": {}, "sampler_route": {}, "launches": {},
-                                 "rays": 0.0}
+                                 "shade_route": {}, "shade_plain_reason": {},
+                                 "sampler_route": {}, "launches": {}, "rays": 0.0}
 
 
 NESTING = {
@@ -282,18 +282,23 @@ def test_render_metrics_read_once_when_the_call_ends(scenes):
 
 def test_shade_route_counts_each_bounce(scenes, tmp_path):
     """The shade_route counter: on the CPU every bounce takes the plain
-    route, 5 a pass (depth 5, 2 passes); with the tracer off nothing is
-    counted; the Chrome trace carries it."""
+    route, 5 a pass (depth 5, 2 passes), each counted by its reason in
+    shade_plain_reason; with the tracer off nothing is counted; the Chrome
+    trace carries both."""
     arrays, static = scenes["pmj02bn"]
     assert static.max_depth == 5
     metrics.collect()
     render_t.render(arrays, static, device="cpu")
-    assert metrics.collect()["shade_route"] == {}
+    got = metrics.collect()
+    assert got["shade_route"] == {} and got["shade_plain_reason"] == {}
     _, got = traced(lambda: render_t.render(arrays, static, device="cpu"))
     assert got["shade_route"] == {"plain": 5 * 2}
+    assert got["shade_plain_reason"] == {"CPU tensors": 5 * 2}
     path = tmp_path / "trace.json"
     metrics.write_chrome_trace(str(path), got)
-    assert json.loads(path.read_text())["otherData"]["shade_route"] == {"plain": 10}
+    other = json.loads(path.read_text())["otherData"]
+    assert other["shade_route"] == {"plain": 10}
+    assert other["shade_plain_reason"] == {"CPU tensors": 10}
 
 
 def span(name, sid, parent, start_ms, end_ms, device_ms=None, **attrs):
