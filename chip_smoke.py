@@ -180,7 +180,8 @@ Phases (each check raises; the script exits non-zero on the first failure):
     kernel (``shade_route`` kernel on every bounce, one launch each); its
     ms a launch, its bytes bound and the plain version's ms; then
     ``shade_route`` of con-2 and config 3 (3840x2160) render() passes
-    (kernel on every bounce) and of a Textured render() pass and a con-2
+    (kernel on every bounce; config 3's footprint derived in the kernel,
+    ``texture_footprint`` kernel on every bounce, con-2's none) and of a Textured render() pass and a con-2
     optimize() step (plain on every bounce, each with its reason in
     ``shade_plain_reason``).
 
@@ -1974,10 +1975,15 @@ def phase_shade(torch, smi) -> dict:
         launches = bounce_kernel.SHADE.launches - before
         kernel_routes[name] = got["shade_route"]
         log(f"phase 22: {name} render() pass: shade_route {got['shade_route']}, "
-            f"{launches} shade kernel launches, texture lookups {got['texture_lookups']}")
+            f"{launches} shade kernel launches, texture lookups {got['texture_lookups']}, "
+            f"texture footprints {got['texture_footprint']}")
         if got["shade_route"] != {"kernel": static.max_depth} or launches != static.max_depth:
             raise AssertionError(f"phase 22: render() of {name} did not take the shade kernel "
                                  "on every bounce")
+        want = {"kernel": static.max_depth} if bounce_kernel.footprint_mode(static) else {}
+        if got["texture_footprint"] != want:
+            raise AssertionError(f"phase 22: render() of {name}: texture footprints "
+                                 f"{got['texture_footprint']}, not {want}")
         if name == "con-2":
             con2_launches = launches
     plain_routes = {}

@@ -399,22 +399,23 @@ def _shade(scene, static, st: _OState, li, alive, draws):
     """The shade stage by the route the scene and the call allow
     (bounce_kernel.route_reason): the kernel or _shade_plain. The tracer's
     ``shade_route`` counter counts the bounce by route, and a plain one by
-    its reason. Textured material fields hand the kernel the texel pool and
-    the hits' footprint, computed here as _shade_plain computes it."""
+    its reason; ``texture_footprint`` counts a plain bounce whose
+    _texture_footprint returns a footprint (the kernel counts its own).
+    Textured material fields hand the kernel the texel pool; it derives the
+    hits' footprint itself."""
     route, reason = bounce_kernel.route_reason(
         scene, static,
         (st.ray_o, st.ray_d, li, st.throughput, st.eta, st.bsdf_pdf, st.accum_rough),
     )
     metrics.shade_route(route, reason)
     if route == "plain":
+        if bounce_kernel.footprint_mode(static) > 0:
+            metrics.texture_footprint("plain")
         return _shade_plain(scene, static, st, li, alive, draws)
-    footprint = (None, None)
-    if static.mip_textures and textures_mod.textured(static):
-        footprint = _texture_footprint(static, _hit_interaction(st), st.ray_d)
     return bounce_kernel.shade_cuda(
         bounce_kernel.tables_for(scene), static, st.rows, st.ray_o, st.ray_d, li, alive,
         st.throughput, st.eta, st.bsdf_pdf, st.discrete, st.accum_rough, draws,
-        texels=scene.textures.texels, footprint=footprint,
+        texels=scene.textures.texels,
     )
 
 

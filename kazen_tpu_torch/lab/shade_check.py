@@ -35,7 +35,6 @@ from ..film import film as film_mod
 from ..integrate import path_mis
 from ..integrate.render import _render_pass, pixel_grid, sampler_spec
 from ..shade import bounce_kernel
-from ..shade import textures as textures_mod
 from ..utils import metrics
 
 COLUMNS = ("p", "nee_wi", "smaxt", "pd", "li", "throughput", "eta", "accum", "contrib",
@@ -44,23 +43,14 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 ROWS_READ = 31  # K1 rows 3-33
 
 
-def lane_bytes(n_strat: int, draw_rr: bool, footprint: int = 0) -> int:
+def lane_bytes(n_strat: int, draw_rr: bool) -> int:
     """Bytes a lane of the kernel reads and writes once: K1's rows 3-33,
     ray o and d, li and throughput, eta, bsdf_pdf, accum, alive and
-    discrete, the uniforms it consumes, the ``footprint`` columns (lod and
-    the major uv half-axis: 0, 1 or 3); out the 24 floats and two int64."""
+    discrete, the uniforms it consumes; out the 24 floats and two int64.
+    The texture footprint is derived in the kernel: no column."""
     uniforms = 3 + (4 if n_strat > 0 else 0) + (1 if draw_rr else 0)
-    read = 4 * (ROWS_READ + 3 * 4 + 3 + uniforms + footprint) + 2
+    read = 4 * (ROWS_READ + 3 * 4 + 3 + uniforms) + 2
     return read + 4 * bounce_kernel.OUT_COLS + 2 * 8
-
-
-def footprint_columns(static) -> int:
-    """The footprint columns the kernel reads for a scene: lod and the major
-    uv half-axis (3), lod alone without anisotropy (1), none without mip
-    filtering or textured material fields (0)."""
-    if not (static.mip_textures and textures_mod.textured(static)):
-        return 0
-    return 3 if static.aniso_textures else 1
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -113,8 +103,9 @@ def held(records: list):
         records.append({
             "bounce": len(records) + 1, "route": route, "reason": reason, "lanes": n,
             "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": n * lane_bytes(path_mis._nee_strata(static), draws.u_rr is not None,
-                                       footprint_columns(static)) / HBM_BYTES_PER_S * 1e3,
+            "footprint_mode": bounce_kernel.footprint_mode(static),
+            "bound_ms": n * lane_bytes(path_mis._nee_strata(static), draws.u_rr is not None)
+            / HBM_BYTES_PER_S * 1e3,
             "differ": mismatches(out, want),
         })
         return out
@@ -146,12 +137,14 @@ def check_pass(scene, static, spec=None, sample: int = 0) -> dict:
 
 def summary(result: dict) -> dict:
     """Totals of check_pass: lanes differing by column over the bounces, the
-    kernel's ms per launch (mean), its bound and the plain version's ms."""
+    footprint mode the kernel was given, the kernel's ms per launch (mean),
+    its bound and the plain version's ms."""
     b = result["bounces"]
     differ = {c: sum(r["differ"][c] for r in b) for c in COLUMNS}
     return {
         "bounces": len(b), "shade_route": result["shade_route"],
         "kernel_launches": result["launches"],
+        "footprint_mode": b[0]["footprint_mode"] if b else None,
         "differ": differ, "equal": not any(differ.values()),
         "ms_per_launch": sum(r["ms"] for r in b) / max(len(b), 1),
         "bound_ms": sum(r["bound_ms"] for r in b) / max(len(b), 1),
@@ -261,7 +254,8 @@ def main(config="4", size=None, device="cuda", sample: int = 0) -> dict:
     scene, static = compile_scene(desc, device=dev, megakernel=False)
     res = check_pass(scene, static, sample=sample)
     for r in res["bounces"]:
-        print(f"[shade_check] config {config} bounce {r['bounce']} {r['route']}: "
+        print(f"[shade_check] config {config} bounce {r['bounce']} {r['route']} "
+              f"(footprint mode {r['footprint_mode']}): "
               f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, plain {r['plain_ms']:.3f}); "
               f"differ {dict((k, v) for k, v in r['differ'].items() if v)}")
     out = summary(res)

@@ -44,6 +44,7 @@ from ..scene.compiler import (
     MAX_MIP_LEVELS,
 )
 from ..utils import metrics
+from . import textures as textures_mod
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "bounce.cu")
 # every product and sum rounds on its own, as the plain version's ops do
@@ -274,12 +275,12 @@ class _Params(ctypes.Structure):
         ("s1", _P), ("s2", _P),
         ("mats", _P), ("ltris", _P), ("linfo", _P), ("lcdf", _P),
         ("mat_i", _P), ("tex_i", _P), ("tex_f", _P), ("texels", _P),
-        ("lod", _P), ("maj_du", _P), ("maj_dv", _P),
         ("out", _P), ("pick", _P), ("cluster", _P), ("counts", _P),
     ] + [(name, ctypes.c_int) for name in (
         "n", "L", "maxlf", "n_strat", "draw_rr", "regularization", "wi_order_b",
         "tex_fields", "footprint", "nmap")
-    ] + [("trace_bias", ctypes.c_float), ("acc_scale", ctypes.c_float)]
+    ] + [("trace_bias", ctypes.c_float), ("acc_scale", ctypes.c_float),
+         ("pixel_cone", ctypes.c_float)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -317,17 +318,25 @@ def _table(name, t, shape, dev, dtype=torch.float32):
     return t.data_ptr()
 
 
+def footprint_mode(static) -> int:
+    """The texture footprint the kernel derives for a scene, as
+    path_mis._texture_footprint returns it: 2 the lod and the major uv
+    half-axis (anisotropic mip filtering), 1 the lod alone, 0 none (no mip
+    filtering, or no textured material field)."""
+    if not (static.mip_textures and textures_mod.textured(static)):
+        return 0
+    return 2 if static.aniso_textures else 1
+
+
 def shade_cuda(tables: ShadeTables, static, rows, ray_o, ray_d, li, alive, throughput, eta,
-               bsdf_pdf, discrete, accum, draws: Draws, texels=None,
-               footprint=(None, None)) -> ShadeOut:
+               bsdf_pdf, discrete, accum, draws: Draws, texels=None) -> ShadeOut:
     """The kernel on CUDA tensors: ``rows`` (40, N) from K1 (or a lane
     prefix of them, each row contiguous), the lane state
     after _shade_prologue (vectors may be strided views), the bounce's
     uniforms (Russian roulette where ``draws.u_rr`` is given) -> ShadeOut.
     A scene with textured material fields also gives the texel pool
-    (``texels``, (P, 3)) and the footprint path_mis._texture_footprint
-    returns, ``(lod, (maj_du, maj_dv))``: (None, None) without mip
-    filtering, (lod, None) without anisotropy."""
+    (``texels``, (P, 3)); the kernel derives the hits' footprint itself
+    (``footprint_mode``)."""
     dev = rows.device
     if dev.type != KERNEL_DEVICE:
         raise ValueError(f"the shade kernel takes {KERNEL_DEVICE.upper()} tensors, got {dev}")
@@ -367,11 +376,7 @@ def shade_cuda(tables: ShadeTables, static, rows, ray_o, ray_d, li, alive, throu
     fields = static.textured_fields
     if fields and texels is None:
         raise ValueError(f"textured material fields {fields} need the texel pool")
-    lod, aniso = footprint
-    foot = (lod, *(aniso or (None, None))) if fields else (None, None, None)
-    for k, t in zip(("lod", "maj_du", "maj_dv"), foot):
-        if t is not None and _lane(k, t, n, dev)[1] != 1:
-            raise ValueError(f"footprint column {k} must be contiguous")
+    mode = footprint_mode(static) if fields else 0
     maxlf = tables.maxlf
     out = torch.empty((n, OUT_COLS), dtype=torch.float32, device=dev)
     pick = torch.empty(n, dtype=torch.int64, device=dev)
@@ -391,16 +396,15 @@ def shade_cuda(tables: ShadeTables, static, rows, ray_o, ray_d, li, alive, throu
         _table("tex_i", tables.tex_i, (tables.tex_i.shape[0], TEX_I), dev, torch.int64),
         _table("tex_f", tables.tex_f, (tables.tex_i.shape[0], TEX_F), dev),
         _table("texels", texels, (texels.shape[0], 3), dev) if fields else None,
-        *(t.data_ptr() if t is not None else None for t in foot),
         out.data_ptr(), pick.data_ptr(), cluster.data_ptr(), counts.data_ptr(),
         n, static.num_lights, maxlf, n_strat, int(draws.u_rr is not None),
         int(static.regularization),
         # to_local(-ray_d)'s reduce order: PyTorch reduces the product over
         # its fastest dimension where ray_d's components are its fastest
         int(not ray_d.stride(1) < ray_d.stride(0)),
-        sum(FIELD_BITS[k] for k in fields), sum(t is not None for t in foot[:2]),
+        sum(FIELD_BITS[k] for k in fields), mode,
         int(BSDF_NORMALMAP in static.btypes_present),
-        static.trace_bias, static.accumulated_roughness,
+        static.trace_bias, static.accumulated_roughness, static.pixel_cone,
     )
     if n > 0:
         lib = _library()
@@ -409,6 +413,8 @@ def shade_cuda(tables: ShadeTables, static, rows, ray_o, ray_d, li, alive, throu
         SHADE.launches += 1
         for k in fields:
             metrics.texture_lookup(k, "kernel")
+        if mode > 0:
+            metrics.texture_footprint("kernel")
         if code != 0:
             raise RuntimeError(
                 f"{SHADE.name} launch failed: {lib.kz_error_string(code).decode()} ({code})")

@@ -56,9 +56,10 @@
 // reduce orders taken from its operands' layouts, as above), the
 // directions re-expressed in it, and the unperturbed fallback where the
 // mapped normal faces away from wi. The footprint (lod and the major uv
-// half-axis) comes in as columns, computed by path_mis._texture_footprint.
+// half-axis, path_mis._texture_footprint) is derived here from the hit's t,
+// dpdu, dpdv and shading normal, for the lanes that fetch a textured field.
 // The untextured instance keeps 96 registers and no spill; TEX takes 112,
-// TEX with NMAP 120 (no spill); NMAP alone 96 with 12 bytes of spill.
+// TEX with NMAP 122 (no spill); NMAP alone 96 with 12 bytes of spill.
 //
 // Everything above the launches' banner compiles for the host too, against
 // a header that defines the CUDA names for one host thread:
@@ -108,9 +109,6 @@ struct Params {
   const long long* tex_i;  // (T, 19) [ttype, offset, width, height, n_levels, mip_offset 14]
   const float* tex_f;      // (T, 4) [uv_scale, const rgb]
   const float* texels;     // (P, 3)
-  const float* lod;        // (n,) the footprint's lod, or null
-  const float* maj_du;     // (n,) its major uv half-axis, or null
-  const float* maj_dv;
   float* out;          // (n, 24)
   long long* pick;     // (n,)
   long long* cluster;  // (n,)
@@ -120,6 +118,7 @@ struct Params {
   int footprint;   // 0 level-0 bilinear, 1 trilinear at lod, 2 and the probes
   int nmap;        // a normalmap material is present
   float trace_bias, acc_scale;
+  float pixel_cone;  // one pixel's footprint angle (static.pixel_cone as f32)
 };
 
 namespace {
@@ -693,6 +692,47 @@ __device__ __forceinline__ V3 field_value(const Params& p, int tex_id, V3 cst, f
   return tex_id >= 0 ? eval_leaf(p, tex_id, uvx, uvy, lod, adu, adv) : cst;
 }
 
+// path_mis._texture_footprint of one lane, for p.footprint 1 (lod) or 2 (and
+// the major uv half-axis): t is the hit's (3e38 on a miss), dpdu, dpdv and n
+// the interaction's after the uv_ok fallback, d the ray. Each dot takes the
+// reduce order of its product's layout in the plain version: the
+// interaction's dpdu and dpdv are the hit rows' strided layout (DOT_B), what
+// derives from ray_d takes ray_d's (wi_b), the cross product is stacked
+// (DOT_A).
+__device__ void texture_footprint(const Params& p, bool wi_b, float t, V3 dpdu, V3 dpdv,
+                                  V3 n, V3 d, float& lod, float& adu, float& adv) {
+  const float foot = clamp_hi(fabsf(t), (float)1e8) * p.pixel_cone;
+  const float iso_len =
+      foot / clamp_lo(nanmin(norm<DOT_B>(dpdu), norm<DOT_B>(dpdv)), (float)1e-6);
+  if (p.footprint == 1) {
+    lod = log2f(clamp_lo(iso_len, (float)1e-9));
+    return;
+  }
+  const float dn = dot_o(wi_b, d, n);
+  const float cosv = clamp2(fabsf(dn), 1.0f / 16.0f, 1.0f);  // 1 / _MAX_ANISO
+  const V3 tang = sub(d, scale(n, dn));
+  const float tl = sqrtf(clamp_lo(dot_o(wi_b, tang, tang), (float)1e-18));
+  const V3 m_dir = divs(tang, clamp_lo(tl, (float)1e-9));
+  const V3 mi_dir = cross(n, m_dir);
+  const float e = dot<DOT_B>(dpdu, dpdu);
+  const float fg = dot<DOT_B>(dpdu, dpdv);
+  const float g = dot<DOT_B>(dpdv, dpdv);
+  const float det = e * g - fg * fg;
+  const bool ok = det > (float)1e-16 && tl > (float)1e-5;
+  const float det_s = ok ? det : 1.0f;
+  const float half = 0.5f * foot;
+  // uv_vec of the major and the minor half-axis
+  const V3 wm = scale(m_dir, half / cosv);
+  const float b1 = dot_o(wi_b, wm, dpdu), b2 = dot_o(wi_b, wm, dpdv);
+  const V3 wn = scale(mi_dir, half);
+  const float c1 = dot<DOT_A>(wn, dpdu), c2 = dot<DOT_A>(wn, dpdv);
+  const float idu = (g * c1 - fg * c2) / det_s, idv = (e * c2 - fg * c1) / det_s;
+  const float minor_len = 2.0f * sqrtf(clamp_lo(idu * idu + idv * idv, (float)1e-30));
+  lod = log2f(clamp_lo(ok ? minor_len : iso_len, (float)1e-9));
+  adu = ok ? (g * b1 - fg * b2) / det_s : 0.0f;
+  adv = ok ? (e * b2 - fg * b1) / det_s : 0.0f;
+}
+
 // ---------------------------------------------------------------------------
 // the stage
 // ---------------------------------------------------------------------------
@@ -739,6 +779,8 @@ __global__ void __launch_bounds__(THREADS) shade_kernel(const Params p) {
     const float qvy = tv.z * e1.x - tv.x * e1.z;
     const float qvz = tv.x * e1.y - tv.y * e1.x;
     const float v = ((d.x * qvx + d.y * qvy) + d.z * qvz) * inv_det;
+    // and its t, the footprint's distance (a miss's comes from row 0)
+    const float t_mt = TEX ? ((e2.x * qvx + e2.y * qvy) + e2.z * qvz) * inv_det : 0.0f;
     // _prepare_core: Hanika's point, the shading frame
     const float b0 = (1.0f - u) - v, b1 = u, b2 = v;
     const V3 orig_p = add(add(scale(p0, b0), scale(p1, b1)), scale(p2, b2));
@@ -781,27 +823,35 @@ __global__ void __launch_bounds__(THREADS) shade_kernel(const Params p) {
     }
     // the hit's uv (_prepare_core) and footprint, for the texture fetches
     float uvx = 0.0f, uvy = 0.0f, lod = 0.0f, adu = 0.0f, adv = 0.0f;
+    int nrm_id = -1;
     if (TEX) {
       uvx = has_uv ? (b0 * uv0x + b1 * uv1x) + b2 * uv2x : u;
       uvy = has_uv ? (b0 * uv0y + b1 * uv1y) + b2 * uv2y : v;
-      if (p.footprint > 0) lod = p.lod[i];
-      if (p.footprint > 1) {
-        adu = p.maj_du[i];
-        adv = p.maj_dv[i];
-      }
       // each textured field once: base for lambertian, GGX and kiss (diffuse
-      // keeps its row's albedo), metallic and roughness for kiss
+      // keeps its row's albedo), metallic and roughness for kiss, the normal
+      // map's normal
       const int* ids = p.mat_i + eff * MAT_I;
       const bool kiss = mp.btype == KISS;
-      if ((p.tex_fields & FIELD_BASE) &&
-          (kiss || mp.btype == GGX || mp.btype == LAMBERTIAN))
-        mp.base = field_value(p, ids[0], mp.base, uvx, uvy, lod, adu, adv);
-      if ((p.tex_fields & FIELD_METALLIC) && kiss)
-        mp.metallic = field_value(p, ids[1], v3(mp.metallic, mp.metallic, mp.metallic), uvx,
-                                  uvy, lod, adu, adv).x;
-      if ((p.tex_fields & FIELD_ROUGHNESS) && kiss)
-        mp.roughness = field_value(p, ids[2], v3(mp.roughness, mp.roughness, mp.roughness),
-                                   uvx, uvy, lod, adu, adv).x;
+      const int base_id = (p.tex_fields & FIELD_BASE) &&
+                                  (kiss || mp.btype == GGX || mp.btype == LAMBERTIAN)
+                              ? ids[0]
+                              : -1;
+      const int met_id = (p.tex_fields & FIELD_METALLIC) && kiss ? ids[1] : -1;
+      const int rough_id = (p.tex_fields & FIELD_ROUGHNESS) && kiss ? ids[2] : -1;
+      if (NMAP && is_nm && (p.tex_fields & FIELD_NORMAL))
+        nrm_id = p.mat_i[material * MAT_I + 3];
+      // the footprint, only where a lane fetches a textured field
+      if (p.footprint > 0 && (base_id >= 0 || met_id >= 0 || rough_id >= 0 || nrm_id >= 0)) {
+        const float t_hit = valid ? t_mt : p.rows[i];
+        const V3 dpdv = scale(add(scale(dp0, -duv1x), scale(dp1, duv0x)), inv_d);
+        texture_footprint(p, p.wi_order_b != 0, t_hit, sel(uv_ok, dpdu, fb_s),
+                          sel(uv_ok, dpdv, fb_t), fr.n, d, lod, adu, adv);
+      }
+      mp.base = field_value(p, base_id, mp.base, uvx, uvy, lod, adu, adv);
+      mp.metallic = field_value(p, met_id, v3(mp.metallic, mp.metallic, mp.metallic), uvx,
+                                uvy, lod, adu, adv).x;
+      mp.roughness = field_value(p, rough_id, v3(mp.roughness, mp.roughness, mp.roughness),
+                                 uvx, uvy, lod, adu, adv).x;
     }
     // the normal map's frame (bsdf.make_ctx); the orders are its operands'
     // layouts: n_t, wi and cross products are stacked (DOT_A), what comes
@@ -811,8 +861,7 @@ __global__ void __launch_bounds__(THREADS) shade_kernel(const Params p) {
     V3 wi_eff = wi_local;
     if (NMAP && is_nm) {
       V3 rgb = v3(0.5f, 0.5f, 1.0f);
-      if (TEX && (p.tex_fields & FIELD_NORMAL))
-        rgb = field_value(p, p.mat_i[material * MAT_I + 3], rgb, uvx, uvy, lod, adu, adv);
+      if (TEX) rgb = field_value(p, nrm_id, rgb, uvx, uvy, lod, adu, adv);
       const V3 n_t = v3(2.0f * rgb.x - 1.0f, 2.0f * rgb.y - 1.0f, 2.0f * rgb.z - 1.0f);
       const bool shortcut = wi_local.z > 0.0f && dot<DOT_A>(n_t, wi_local) <= 0.0f;
       const V3 dpdu_h = sel(uv_ok, dpdu, fb_s);

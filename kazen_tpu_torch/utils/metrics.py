@@ -15,8 +15,9 @@ can be put in its span by correlation id. A ``render.pass`` span on the
 card records a CUDA event at its start and end; nothing waits on them until
 ``collect()``, which makes the one synchronize and returns the spans and
 counters (host reads by site, material texture lookups by field and route,
-bounces by shade route and the plain ones by reason, sampler draws by
-route, CUDA kernel launches, rays traced) and clears them. ``write_chrome_trace``
+bounces by shade route and the plain ones by reason, texture footprints
+and sampler draws by route, CUDA kernel launches, rays traced) and clears
+them. ``write_chrome_trace``
 writes what ``collect()`` returned as a Chrome trace (the CLI's ``--trace
 FILE``). The tracer keeps one record for the
 process and is not thread-safe.
@@ -103,6 +104,7 @@ class _Record:
         self.shade_route = {}
         self.shade_plain_reason = {}
         self.sampler_route = {}
+        self.texture_footprint = {}
         self.rays = []
         self.launches0 = _launch_counts()
 
@@ -231,6 +233,14 @@ def sampler_route(route: str) -> None:
         _rec.sampler_route[route] = _rec.sampler_route.get(route, 0) + 1
 
 
+def texture_footprint(route: str) -> None:
+    """Count one derivation of a bounce's texture footprint by route:
+    "kernel" (a shade kernel launch that derived it in-kernel) or "plain"
+    (a plain shade stage whose path_mis._texture_footprint returns one)."""
+    if _on:
+        _rec.texture_footprint[route] = _rec.texture_footprint.get(route, 0) + 1
+
+
 def rays(nrays) -> None:
     """Keep a pass's ray count (a device tensor) for ``collect()``, which
     sums them once."""
@@ -242,21 +252,24 @@ def collect() -> dict:
     """Everything recorded since tracing began or the last collect(), which
     is cleared: ``spans`` (closed spans, in the order they closed),
     ``host_reads`` ({site: count}), ``texture_lookups`` ({field: {route:
-    count}}), ``shade_route`` and ``sampler_route`` ({route: count}),
-    ``shade_plain_reason`` ({reason: count}), ``launches`` ({CUDA kernel: launches since}), ``rays`` (their sum). One
+    count}}), ``shade_route``, ``sampler_route`` and ``texture_footprint``
+    ({route: count}), ``shade_plain_reason`` ({reason: count}),
+    ``launches`` ({CUDA kernel: launches since}), ``rays`` (their sum). One
     synchronize where a span recorded CUDA events or a ray count lives on
     the card. Spans still open go to the next collect()."""
     global _rec
     rec = _rec
     if rec is None:
         return {"spans": [], "host_reads": {}, "texture_lookups": {}, "shade_route": {},
-                "shade_plain_reason": {}, "sampler_route": {}, "launches": {}, "rays": 0.0}
+                "shade_plain_reason": {}, "sampler_route": {}, "texture_footprint": {},
+                "launches": {}, "rays": 0.0}
     spans, rec.spans = rec.spans, []
     reads, rec.host_reads = rec.host_reads, {}
     lookups, rec.texture_lookups = rec.texture_lookups, {}
     routes, rec.shade_route = rec.shade_route, {}
     reasons, rec.shade_plain_reason = rec.shade_plain_reason, {}
     draws, rec.sampler_route = rec.sampler_route, {}
+    footprints, rec.texture_footprint = rec.texture_footprint, {}
     counts, rec.rays = rec.rays, []
     launches0, rec.launches0 = rec.launches0, _launch_counts()
     if not _on and not rec.stack:
@@ -270,7 +283,7 @@ def collect() -> dict:
     total = float(torch.stack([r.double() for r in counts]).sum()) if counts else 0.0
     return {"spans": spans, "host_reads": reads, "texture_lookups": lookups,
             "shade_route": routes, "shade_plain_reason": reasons, "sampler_route": draws,
-            "launches": launches, "rays": total}
+            "texture_footprint": footprints, "launches": launches, "rays": total}
 
 
 def write_chrome_trace(path: str, collected: dict) -> None:
@@ -292,6 +305,7 @@ def write_chrome_trace(path: str, collected: dict) -> None:
              "shade_route": collected["shade_route"],
              "shade_plain_reason": collected["shade_plain_reason"],
              "sampler_route": collected["sampler_route"],
+             "texture_footprint": collected["texture_footprint"],
              "launches": collected["launches"], "rays": collected["rays"]}
     with open(path, "w") as f:
         json.dump({"traceEvents": events, "displayTimeUnit": "ms", "otherData": other}, f,

@@ -233,7 +233,8 @@ def test_the_traced_window_captures_the_shade_kernels_launches(host_library, mon
     table = shade_roofline.table_bytes(job.arrays.shade_tables, job.arrays.textures.texels)
     for k, x in enumerate(got):
         rr = k % job.static.max_depth >= 3
-        want = lanes * shade_roofline.lane_bytes(1, rr, 3) + table
+        # the kernel derives the footprint itself: no footprint column read
+        want = lanes * shade_roofline.lane_bytes(1, rr, 0) + table
         assert x["n"] == lanes and x["bytes"] == want
         assert x["bound_s"] == pytest.approx(want / 3.35e12)
     assert job.records.extra["shade_kernel_name"] == "shade_kernel"
@@ -301,9 +302,11 @@ def test_a_run_loads_no_forbidden_module():
 def test_the_tracer_on_config_3(route, host_library, monkeypatch):
     """Off, the tracer records nothing. On, a pass of config 3 on the CPU
     takes the plain route on its 5 bounces (``shade_plain_reason`` "CPU
-    tensors") and looks the base colour and the normal map up as images;
-    with the kernel's source built for the host, the kernel route on all 5,
-    each bounce counting one ``kernel`` lookup of those two fields."""
+    tensors") and looks the base colour and the normal map up as images,
+    its _texture_footprint counted ``plain`` once a bounce; with the
+    kernel's source built for the host, the kernel route on all 5, each
+    bounce counting one ``kernel`` lookup of those two fields and one
+    ``kernel`` footprint, and no plain footprint."""
     if route == "kernel":
         shade_host.kernel_on_host(monkeypatch, host_library)
     arrays, static = compile_scene(kiss3.build(PD, config(5, 8, 8, sample_count=1)),
@@ -320,7 +323,9 @@ def test_the_tracer_on_config_3(route, host_library, monkeypatch):
         assert got["shade_plain_reason"] == {"CPU tensors": 5}
         assert lookups["base"]["image"] > 0 and lookups["normal"]["image"] == 5
         assert "kernel" not in lookups["base"]
+        assert got["texture_footprint"] == {"plain": 5}
     else:
         assert got["shade_route"] == {"kernel": 5} and got["shade_plain_reason"] == {}
         assert {f: r.get("kernel", 0) for f, r in lookups.items()} == {"base": 5, "normal": 5}
         assert lookups["base"]["image"] == 0
+        assert got["texture_footprint"] == {"kernel": 5}

@@ -4,6 +4,7 @@ version against the bounce body it was pulled out of, and (marked cuda) the
 kernel against the plain version on the card. No JAX is needed here (only
 the thread policy's helpers import it): the card's machine runs this file."""
 import dataclasses
+import inspect
 
 import numpy as np
 import pytest
@@ -15,7 +16,7 @@ from kazen_tpu_torch.integrate import render as render_t
 from kazen_tpu_torch.lab import shade_check
 from kazen_tpu_torch.samplers import streams
 from kazen_tpu_torch.scene import description as D
-from kazen_tpu_torch.scene.compiler import compile_scene
+from kazen_tpu_torch.scene.compiler import BSDF_KISS, compile_scene
 from kazen_tpu_torch.shade import bounce_kernel as bk
 from kazen_tpu_torch.utils import metrics
 
@@ -325,19 +326,8 @@ def test_shade_check_rehearses_on_the_cpu(con2_scene):
     assert out["shade_route"] == {"plain": static.max_depth} and out["kernel_launches"] == 0
     assert {r["reason"] for r in res["bounces"]} == {"CPU tensors"}
     assert shade_check.lane_bytes(1, True) == 4 * (31 + 12 + 3 + 8) + 2 + 4 * 24 + 16
-    assert shade_check.lane_bytes(1, False, 3) == shade_check.lane_bytes(1, True) + 4 * 2
-    assert shade_check.footprint_columns(static) == 0
-
-
-@pytest.mark.parametrize("mip, aniso, columns", [(True, True, 3), (True, False, 1),
-                                                  (False, True, 0)])
-def test_footprint_columns_follow_the_scene(mip, aniso, columns):
-    """The kernel reads lod and the major uv half-axis with anisotropic
-    mip filtering, lod alone without anisotropy, no column without mip
-    filtering."""
-    desc = shade_check.textured_scene(8, 8, mip=mip, aniso=aniso)
-    _, static = compile_scene(desc, device="cpu", megakernel=False)
-    assert shade_check.footprint_columns(static) == columns
+    assert shade_check.lane_bytes(1, False) == shade_check.lane_bytes(1, True) - 4
+    assert out["footprint_mode"] == bk.footprint_mode(static) == 0
 
 
 # ---------------------------------------------------------------------------
@@ -349,11 +339,48 @@ def host_library(tmp_path_factory):
     return shade_host.build(tmp_path_factory.mktemp("shade_host"))
 
 
+class _Given:
+    """The host library, keeping the footprint mode and pixel cone each
+    launch's parameters give the kernel."""
+
+    def __init__(self, lib):
+        self.lib, self.given = lib, []
+
+    def kz_shade_bounce(self, prm, stream):
+        self.given.append((prm._obj.footprint, prm._obj.pixel_cone))
+        return self.lib.kz_shade_bounce(prm, stream)
+
+    def kz_error_string(self, code):
+        return self.lib.kz_error_string(code)
+
+
+@pytest.mark.parametrize("mip, aniso, mode", [(True, True, 2), (True, False, 1),
+                                               (False, True, 0)])
+def test_footprint_columns_follow_the_scene(mip, aniso, mode, host_library, monkeypatch):
+    """The kernel derives the footprint the scene asks for and reads no
+    footprint column: every launch is given mode 2 (lod and the major uv
+    half-axis) with anisotropic mip filtering, 1 (lod) without anisotropy,
+    0 without mip filtering, and the pixel cone rounded to f32; the tracer
+    counts a ``kernel`` footprint a launch where the mode is not 0."""
+    given = _Given(host_library)
+    shade_host.kernel_on_host(monkeypatch, given)
+    desc = shade_check.textured_scene(8, 8, mip=mip, aniso=aniso)
+    arrays, static = compile_scene(desc, device="cpu", megakernel=False)
+    assert bk.footprint_mode(static) == mode
+    metrics.collect()
+    with metrics.tracing():
+        render_t.render(arrays, static, spp=1, device="cpu")
+    got = metrics.collect()
+    assert given.given == [(mode, float(np.float32(static.pixel_cone)))] * static.max_depth
+    assert got["texture_footprint"] == ({"kernel": static.max_depth} if mode else {})
+    assert "footprint" not in inspect.signature(bk.shade_cuda).parameters
+
+
 HOST_CASES = {
     "con2": lambda: con2(spp=1, size=(48, 27)),
     "config3": lambda: bc.at_size(bc.config_scene(3, spp=1), 48, 27),
     "mixed": lambda: shade_check.mixed_scene(40, 40, sphere=True),
-    **{name: (lambda name=name: shade_check.textured_scene(40, 40, **kw))
+    **{name: (lambda kw=kw: shade_check.textured_scene(40, 40, **kw))
        for name, kw in shade_check.TEXTURED.items()},
 }
 
@@ -402,6 +429,147 @@ def test_kernel_source_matches_plain_on_the_host(case, host_library, monkeypatch
         assert max(differ.values()) <= 0.01 * n, (bounce, differ)
 
 
+def _degenerate_footprints(device="cpu"):
+    """A scene and one ray a lane whose hits reach each degenerate branch
+    of the texture footprint (path_mis._texture_footprint), on textured
+    materials with anisotropic mip filtering: views along the normal of an
+    image-textured kiss quad (material 0, which miss lanes read too), a
+    1 cm lambertian quad whose uvs span 1e5 (a singular uv Jacobian, and
+    |dpdu| under the 1e-6 clamp), a textured quad without vertex normals
+    (uv_ok false: the fallback frame), a normal-mapped GGX quad, rays at
+    the kiss quad from the camera and at a grazing angle (the 1/16 clamp of
+    the cosine), and misses (t = 3e38, off the normal, so that their
+    anisotropic branch runs on the clamped |t|)."""
+    from kazen_tpu_torch.accel.intersect import Rays
+
+    rs = np.random.default_rng(11)
+
+    def image(n):
+        return D.ImageTexture(data=rs.uniform(0.0, 1.0, (n, n, 3)).astype(np.float32),
+                              colorspace="linear")
+
+    def quad(corner, eu, ev, bsdf, normals=True, uv_span=1.0):
+        v, f, n, uv = bc.quad(corner, eu, ev)
+        return D.Mesh(vertices=v, faces=f, normals=n if normals else None,
+                      uvs=(uv * uv_span).astype(np.float32), bsdf=bsdf)
+
+    bump = np.full((16, 16, 3), (0.5, 0.5, 1.0), np.float32)
+    bump[..., :2] += rs.uniform(-0.3, 0.3, (16, 16, 2)).astype(np.float32)
+    desc = bc.cornell_box(width=16, height=16, spp=1, regularization=True)
+    light = desc.meshes[5]
+    desc.meshes = [
+        quad([-0.8, 0.2, 0.6], [0, 0.6, 0], [0.6, 0, 0], D.KazenStandard(
+            base_color=image(32), metallic=image(8), roughness=image(16), clearcoat=0.5)),
+        quad([0.3, 0.3, 0.5], [0, 0.01, 0], [0.01, 0, 0], D.Lambertian(albedo=image(8)),
+             uv_span=1e5),
+        quad([0.2, 1.0, 0.6], [0, 0.6, 0], [0.6, 0, 0], D.Lambertian(albedo=image(16)),
+             normals=False),
+        quad([-0.8, 1.0, 0.6], [0, 0.6, 0], [0.6, 0, 0], D.NormalMap(
+            nested=D.GGX(albedo=image(8), roughness=0.3),
+            normals=D.ImageTexture(data=bump, colorspace="linear"))),
+        light,
+    ]
+    desc.mip_textures = desc.aniso_textures = True
+    arrays, static = compile_scene(desc, device=device, megakernel=False)
+
+    k = 32
+    eye = torch.tensor([0.0, 1.0, -2.5])
+
+    def at(lo, hi, z):
+        xy = torch.from_numpy(rs.uniform(lo, hi, (k, 2)).astype(np.float32))
+        return torch.cat([xy, torch.full((k, 1), z)], 1)
+
+    along = at(-0.75, -0.25, -1.0)
+    along[:, 1] += 1.0
+    targets = torch.cat([at(-0.75, -0.25, 0.6), at(0.301, 0.309, 0.5), at(0.25, 0.75, 0.6),
+                         at(-0.75, -0.25, 0.6)])
+    targets[:k, 1] += 1.0
+    targets[2 * k:3 * k, 1] += 0.75
+    targets[3 * k:, 1] += 1.75
+    graze = at(0.25, 0.75, 0.55)
+    graze[:, 0] = -1.5
+    o = torch.cat([along, eye.expand(4 * k, 3), graze, at(-0.5, 0.5, -1.0)])
+    d = torch.cat([torch.tensor([0.0, 0.0, 1.0]).expand(k, 3),
+                   torch.nn.functional.normalize(targets - eye, dim=1),
+                   torch.nn.functional.normalize(torch.tensor([[1.0, 0.0, 0.05]]), dim=1)
+                   .expand(k, 3),
+                   torch.nn.functional.normalize(torch.tensor([[0.3, 0.2, -1.0]]), dim=1)
+                   .expand(k, 3)])
+    n = o.shape[0]
+    rays = Rays(o=o.contiguous().to(device), d=d.contiguous().to(device),
+                mint=torch.full((n,), path_mis.EPSILON, device=device),
+                maxt=torch.full((n,), path_mis.INF, device=device))
+    return arrays, static, rays
+
+
+def _first_bounce_state(arrays, static, rays):
+    """The sampler spec and the wavefront state of the rays' first bounce
+    (a lane a pixel in row-major order)."""
+    from kazen_tpu_torch.core import rng
+
+    dev = rays.o.device
+    spec = render_t.sampler_spec(static, dev)
+    lanes = torch.arange(rays.o.shape[0], device=dev)
+    stream = streams.init_stream_jump(spec, lanes % static.width, lanes // static.width, 0,
+                                      rng.advance_constants(0))
+    return spec, path_mis.wavefront_init(arrays, static, spec, stream, rays)
+
+
+def _footprint_branches(st):
+    """Per lane: a miss (t = 3e38), a view along the normal, a grazing view
+    (|cos| under 1/16), a singular uv Jacobian, uv_ok false: the conditions
+    _texture_footprint and _prepare_core branch on."""
+    from kazen_tpu_torch.core import math as km
+
+    its = path_mis._hit_interaction(st)
+    nrm = its.sh_frame.n
+    dn = (st.ray_d * nrm).sum(-1)
+    tl = km.norm(st.ray_d - dn[:, None] * nrm)
+    e, fg, g = ((a * b).sum(-1) for a, b in ((its.dpdu, its.dpdu), (its.dpdu, its.dpdv),
+                                              (its.dpdv, its.dpdv)))
+    hit = its.valid
+    return {"miss": ~hit & (its.t == path_mis.INF), "along the normal": hit & (tl <= 1e-5),
+            "grazing": hit & (dn.abs() < 1.0 / 16.0),
+            "singular uv Jacobian": hit & (e * g - fg * fg <= 1e-16),
+            "uv_ok false": hit & (st.rows[31] <= 0.0)}
+
+
+def test_kernel_footprint_branches_match_plain_on_the_host(host_library, monkeypatch):
+    """The kernel's in-kernel footprint on hits that reach each of its
+    degenerate branches, on every bounce of the lanes of
+    _degenerate_footprints: every column within the host test's tolerance
+    of _shade_plain (1e-5 + 1e-3 |plain| on all but 1% of the lanes); on
+    the first bounce each branch holds on 32 lanes or more, and the miss
+    lanes read material 0, an image-textured kiss."""
+    shade_host.kernel_on_host(monkeypatch, host_library)
+    arrays, static, rays = _degenerate_footprints()
+    assert bk.footprint_mode(static) == 2
+    n = rays.o.shape[0]
+    spec, st = _first_bounce_state(arrays, static, rays)
+    branches = _footprint_branches(st)
+    for name, lanes_ in branches.items():
+        assert int(lanes_.sum()) >= 32, (name, int(lanes_.sum()))
+    assert (st.rows[30][branches["miss"]] == 0).all()
+    assert int(arrays.materials.btype[0]) == BSDF_KISS and int(arrays.materials.tex_base[0]) >= 0
+    off, routed = [], path_mis._shade
+
+    def held(scene, st_, state, li, alive, draws):
+        got = routed(scene, st_, state, li, alive, draws)
+        off.append(_close_lanes(got, path_mis._shade_plain(scene, st_, state, li, alive, draws)))
+        return got
+
+    monkeypatch.setattr(path_mis, "_shade", held)
+    metrics.collect()
+    with metrics.tracing():
+        for depth in range(static.max_depth):
+            st = path_mis._bounce_ordered(arrays, static, spec, st, depth >= 3)
+    got = metrics.collect()
+    assert got["shade_route"] == {"kernel": static.max_depth}
+    assert got["texture_footprint"] == {"kernel": static.max_depth}
+    for bounce, differ in enumerate(off, 1):
+        assert max(differ.values()) <= 0.01 * n, (bounce, differ)
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -414,7 +582,7 @@ CARD_CASES = {
     "mixed_single": lambda: shade_check.mixed_scene(128, 128, sphere=False),
     "config3_512": lambda: bc.config_scene(3, spp=1),
     "config3_2160p": lambda: bc.at_size(bc.config_scene(3, spp=1), 3840, 2160),
-    **{name: (lambda name=name: shade_check.textured_scene(256, 256, **kw))
+    **{name: (lambda kw=kw: shade_check.textured_scene(256, 256, **kw))
        for name, kw in shade_check.TEXTURED.items()},
 }
 
@@ -432,3 +600,23 @@ def test_kernel_matches_plain_on_card(case):
     assert out["equal"], out["differ"]
     assert out["shade_route"] == {"kernel": static.max_depth}
     assert out["kernel_launches"] == static.max_depth
+
+
+@pytest.mark.cuda
+def test_kernel_footprint_branches_match_plain_on_card():
+    """The in-kernel footprint on the lanes of _degenerate_footprints,
+    which reach each of its degenerate branches: every column of every
+    bounce equal bit for bit to _shade_plain's, every bounce on the
+    kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the shade kernel has no CPU mode")
+    arrays, static, rays = _degenerate_footprints("cuda")
+    spec, st = _first_bounce_state(arrays, static, rays)
+    assert all(int(m.sum()) >= 32 for m in _footprint_branches(st).values())
+    records = []
+    with shade_check.held(records):
+        for depth in range(static.max_depth):
+            st = path_mis._bounce_ordered(arrays, static, spec, st, depth >= 3)
+    assert [r["route"] for r in records] == ["kernel"] * static.max_depth
+    for r in records:
+        assert not any(r["differ"].values()), (r["bounce"], r["differ"])

@@ -70,7 +70,8 @@ def test_tracer_off_records_and_touches_nothing(what, scenes, monkeypatch):
     monkeypatch.undo()
     assert metrics.collect() == {"spans": [], "host_reads": {}, "texture_lookups": {},
                                  "shade_route": {}, "shade_plain_reason": {},
-                                 "sampler_route": {}, "launches": {}, "rays": 0.0}
+                                 "sampler_route": {}, "texture_footprint": {},
+                                 "launches": {}, "rays": 0.0}
 
 
 NESTING = {
