@@ -79,8 +79,10 @@ Phases (each check raises; the script exits non-zero on the first failure):
     the card with K1 replaced by the plain walk, and to the CPU by channel
     means and rays (the lane share is logged).
 13. Textured 1080p: card against CPU at 64x36; the 1080p pass timed, K1
-    and K2 launched, the image finite with mean > 0; the lane-chunked
-    render (lane_chunk = 2**18, scatter splat) against the grid splat.
+    and K2 launched, the image finite with mean > 0; the shade stage on
+    the kernel on every bounce, and the pass timed on it beside the pass
+    forced onto the plain version; the lane-chunked render (lane_chunk =
+    2**18, scatter splat) against the grid splat.
 
 14. Gradients on the card: (a) d mean((img - target)^2) with respect to
     every material float field, the light radiance and the background
@@ -181,7 +183,10 @@ Phases (each check raises; the script exits non-zero on the first failure):
     ms a launch, its bytes bound and the plain version's ms; then
     ``shade_route`` of con-2 and config 3 (3840x2160) render() passes
     (kernel on every bounce; config 3's footprint derived in the kernel,
-    ``texture_footprint`` kernel on every bounce, con-2's none) and of a Textured render() pass and a con-2
+    ``texture_footprint`` kernel on every bounce, con-2's none), the
+    Textured box at 3840x2160 held the same way and its render() pass on the
+    kernel (``env_nee`` and ``beckmann_lobes`` kernel on every bounce), and
+    of a Textured render() pass with a composite texture node and a con-2
     optimize() step (plain on every bounce, each with its reason in
     ``shade_plain_reason``).
 
@@ -374,23 +379,27 @@ def kiss_base_image(rng, res=1024):
     return np.clip(base + 0.1 * rng.rand(res, res, 3), 0.0, 1.0).astype(np.float32)
 
 
-def textured_scene(D, width, height):
+def textured_scene(D, width, height, composite=False):
     """Textured: the stand-in with this slice's features. The sphere's kiss
     baseColor (sRGB) and roughness are 1024x1024 images; the floor is a
     normalmap (512x512 tangent-space bumps) over diffuse; roughconductor,
     roughplastic and roughdielectric quads face the camera; the background
     is a 512x256 lat-long sky with a bright sun, importance-sampled.
     pmj02bn, 1 spp, depth 5, gaussian filter, mip filtering with EWA probes.
-    Every image is made from SEED."""
+    Every image is made from SEED. With ``composite``, the roughness image
+    sits under a colorramp node (outside the shade kernel's class)."""
     rng = np.random.RandomState(SEED)
     res = 1024
     base = kiss_base_image(rng, res)
     rough = (0.15 + 0.5 * rng.rand(res, res)).astype(np.float32)
+    rough_tex = D.ImageTexture(data=rough, colorspace="linear")
+    if composite:
+        rough_tex = D.ColorRamp(input=rough_tex, min=0.1, max=0.7)
     sphere = _sphere(
         D, [0.0, 0.7, 0.2], 0.6, SPHERE_NU, SPHERE_NV,
         D.KazenStandard(
             base_color=D.ImageTexture(data=base),
-            roughness=D.ImageTexture(data=rough, colorspace="linear"),
+            roughness=rough_tex,
             metallic=0.3,
         ),
     )
@@ -754,6 +763,35 @@ def profile_pass(torch, fn, out_dir, name, top=15):
         "kernel_launches": sum(n for _, n in by_name.values()),
         "top": [{"name": n, "device_ms": ms, "count": c} for n, (ms, c) in ranked[:top]],
     }
+
+def shade_routes(torch, scene, static, phase):
+    """A render() pass's shade route (the kernel on every bounce, its
+    environment NEE and Beckmann lobes counted on the kernel) and the pass
+    timed on the kernel beside the pass with every bounce forced onto the
+    plain version (CUDA events, one pass each)."""
+    from kazen_tpu_torch.integrate.render import render
+    from kazen_tpu_torch.shade import bounce_kernel
+    from kazen_tpu_torch.utils import metrics
+
+    metrics.collect()
+    with metrics.tracing():
+        render(scene, static, device="cuda")
+    got = metrics.collect()
+    want = {"kernel": static.max_depth}
+    counted = {k: got[k] for k in ("shade_route", "env_nee", "beckmann_lobes")}
+    if any(v != want for v in counted.values()):
+        raise AssertionError(f"phase {phase}: the shade stage left the kernel: {counted}")
+    kernel_ms = cuda_ms(torch, lambda: render(scene, static, device="cuda"), 1)
+    route = bounce_kernel.route_reason
+    bounce_kernel.route_reason = lambda *args: ("plain", "timed on the plain version")
+    try:
+        plain_ms = cuda_ms(torch, lambda: render(scene, static, device="cuda"), 1)
+    finally:
+        bounce_kernel.route_reason = route
+    log(f"phase {phase}: {static.width}x{static.height} pass on the shade kernel "
+        f"{kernel_ms:.2f} ms, on the plain version {plain_ms:.2f} ms; {counted}")
+    return {"shade_counters": counted, "kernel_pass_ms": kernel_ms, "plain_pass_ms": plain_ms}
+
 
 def full_pass(torch, scene, static, kernels, label, phase, smi, need, out_dir=None):
     """render() at full size: launch counts set to 0 before a warm-up pass
@@ -1963,9 +2001,22 @@ def phase_shade(torch, smi) -> dict:
             raise AssertionError(f"phase 22: {config}: the main path did not launch the kernel "
                                  f"on every bounce: {out['shade_route']}, "
                                  f"{out['kernel_launches']} launches")
+    scene, static = compile_scene(textured_scene(D, 3840, 2160), device="cuda")
+    out = shade_check.summary(shade_check.check_pass(scene, static))
+    cases["textured_3840x2160"] = out
+    log(f"phase 22: Textured 3840x2160: kernel {out['ms_per_launch']:.4f} ms a launch (bound "
+        f"{out['bound_ms']:.4f}), plain {out['plain_ms']:.3f} ms; shade_route "
+        f"{out['shade_route']}, launches {out['kernel_launches']}; {smi}")
+    if not out["equal"]:
+        raise AssertionError(f"phase 22: Textured: columns differ: {out['differ']}")
+    if out["shade_route"] != {"kernel": static.max_depth}:
+        raise AssertionError(f"phase 22: Textured: the main path did not launch the kernel "
+                             f"on every bounce: {out['shade_route']}")
+    del scene
     kernel_routes = {}
     for name, desc in (("con-2", bc.config_scene(4, spp=1)),
-                       ("config 3", bc.at_size(bc.config_scene(3, spp=1), 3840, 2160))):
+                       ("config 3", bc.at_size(bc.config_scene(3, spp=1), 3840, 2160)),
+                       ("Textured", textured_scene(D, 3840, 2160))):
         scene, static = compile_scene(desc, device="cuda")
         metrics.collect()
         before = bounce_kernel.SHADE.launches
@@ -1984,10 +2035,15 @@ def phase_shade(torch, smi) -> dict:
         if got["texture_footprint"] != want:
             raise AssertionError(f"phase 22: render() of {name}: texture footprints "
                                  f"{got['texture_footprint']}, not {want}")
+        for key, on in (("env_nee", bounce_kernel.env_nee(static)),
+                        ("beckmann_lobes", bounce_kernel.rough_lobes(static))):
+            if got[key] != ({"kernel": static.max_depth} if on else {}):
+                raise AssertionError(f"phase 22: render() of {name}: {key} {got[key]}")
         if name == "con-2":
             con2_launches = launches
     plain_routes = {}
-    for name, desc in (("Textured", textured_scene(D, SMALL_W, SMALL_H)),
+    for name, desc in (("Textured composite", textured_scene(D, SMALL_W, SMALL_H,
+                                                             composite=True)),
                        ("con-2 optimize", bc.at_size(bc.config_scene(4, spp=1), SMALL_W,
                                                      SMALL_H))):
         sc, st = compile_scene(desc, device="cuda")
@@ -2005,7 +2061,7 @@ def phase_shade(torch, smi) -> dict:
             f"shade_plain_reason {got['shade_plain_reason']}")
         if plain_routes[name] != {"plain": st.max_depth}:
             raise AssertionError(f"phase 22: {name} did not take the plain shade stage")
-        if name == "Textured" and got["shade_plain_reason"] != {reason: st.max_depth}:
+        if name == "Textured composite" and got["shade_plain_reason"] != {reason: st.max_depth}:
             raise AssertionError(f"phase 22: {name}'s plain bounces lack their reason")
     con2 = cases["4"]
     return {"cases": cases, "render_shade_route": kernel_routes,
@@ -2538,6 +2594,7 @@ def main() -> int:
     textured = full_pass(torch, tex_scene, tex_static, kernels, "Textured", 13, smi,
                          need=("K1", "K2"), out_dir=out_dir)
     textured["compile_s"] = compile_s
+    textured.update(shade_routes(torch, tex_scene, tex_static, 13))
     img_grid = render(tex_scene, tex_static, device="cuda")
     img_chunked = render(tex_scene, tex_static, lane_chunk=1 << 18, device="cuda")
     err, share = check_li(torch, (img_chunked, None), (img_grid, None),

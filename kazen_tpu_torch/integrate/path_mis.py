@@ -216,7 +216,7 @@ def _shade_prologue(scene, static, st: _OState):
     missed = st.alive & ~valid
     bg = lights_mod.background_radiance(scene, static, st.ray_d)
     add = st.throughput * bg
-    if static.env_importance and static.has_background:
+    if bounce_kernel.env_nee(static):
         w_bg = power_heuristic(st.bsdf_pdf, lights_mod.pdf_env_dir(scene, static, st.ray_d))
         add = add * torch.where(st.discrete, 1.0, w_bg)[:, None]
     li = st.li + torch.where(missed[:, None], add, 0.0)
@@ -273,8 +273,7 @@ def _bounce_draws(spec, static, stream, draw_rr: bool):
 def _nee_strata(static) -> int:
     """The NEE pick's strata: the lights, and the environment where it is
     importance-sampled."""
-    do_env = static.env_importance and static.has_background
-    return static.num_lights + (1 if do_env else 0)
+    return static.num_lights + int(bounce_kernel.env_nee(static))
 
 
 def _hit_interaction(st: _OState) -> Interaction:
@@ -336,7 +335,7 @@ def _shade_plain(scene, static, st: _OState, li, alive, draws):
     # after the permute, so the masked contribution rides the state. With
     # environment importance sampling the pick draws over num_lights + 1
     # strata, the last one the environment.
-    do_env = static.env_importance and static.has_background
+    do_env = bounce_kernel.env_nee(static)
     n_strat = _nee_strata(static)
     if n_strat > 0:
         u_pick, u_tri, u_a, u_b = draws.u_pick, draws.u_tri, draws.u_a, draws.u_b
@@ -400,7 +399,9 @@ def _shade(scene, static, st: _OState, li, alive, draws):
     (bounce_kernel.route_reason): the kernel or _shade_plain. The tracer's
     ``shade_route`` counter counts the bounce by route, and a plain one by
     its reason; ``texture_footprint`` counts a plain bounce whose
-    _texture_footprint returns a footprint (the kernel counts its own).
+    _texture_footprint returns a footprint, ``env_nee`` one whose NEE
+    samples the environment, ``beckmann_lobes`` one of a scene with a
+    rough* material (the kernel counts its own).
     Textured material fields hand the kernel the texel pool; it derives the
     hits' footprint itself."""
     route, reason = bounce_kernel.route_reason(
@@ -411,6 +412,10 @@ def _shade(scene, static, st: _OState, li, alive, draws):
     if route == "plain":
         if bounce_kernel.footprint_mode(static) > 0:
             metrics.texture_footprint("plain")
+        if bounce_kernel.env_nee(static):
+            metrics.env_nee("plain")
+        if bounce_kernel.rough_lobes(static):
+            metrics.beckmann_lobes("plain")
         return _shade_plain(scene, static, st, li, alive, draws)
     return bounce_kernel.shade_cuda(
         bounce_kernel.tables_for(scene), static, st.rows, st.ray_o, st.ray_d, li, alive,

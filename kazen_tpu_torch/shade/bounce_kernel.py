@@ -12,10 +12,15 @@ in its class outside autograd, the plain version otherwise. On the kernel
 route a CUDA tensor launches the kernel or raises. Image-textured material
 fields and the normalmap wrapper are template instances of the kernel,
 picked from the scene (``static.textured_fields``, ``btypes_present``):
-an untextured scene runs the instance without them.
+an untextured scene runs the instance without them. The Beckmann lobes
+(roughconductor, roughplastic, roughdielectric) and the importance-sampled
+environment as a NEE stratum are two more switches; a scene with either
+runs the instance with every switch on.
 
 The kernel reads the material rows, their texture ids and nested rows, the
-texture nodes and the light tables packed here (``pack_tables``), once per
+rough* lobes' parameters, the texture nodes, the light tables, the
+environment's sampling tables and the background packed here
+(``pack_tables``), once per
 compiled scene (``SceneArrays.shade_tables``), with torch operations on the
 scene's device; a scene whose material, texture or light tensors were
 replaced or changed in place since is packed again. The texel pool itself
@@ -29,6 +34,7 @@ import functools
 import os
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import cuda_build
@@ -41,6 +47,9 @@ from ..scene.compiler import (
     BSDF_LAMBERTIAN,
     BSDF_MIRROR,
     BSDF_NORMALMAP,
+    BSDF_ROUGHCONDUCTOR,
+    BSDF_ROUGHDIELECTRIC,
+    BSDF_ROUGHPLASTIC,
     MAX_MIP_LEVELS,
 )
 from ..utils import metrics
@@ -49,9 +58,10 @@ from . import textures as textures_mod
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "bounce.cu")
 # every product and sum rounds on its own, as the plain version's ops do
 NVCC_FLAGS = ("-fmad=false",)
+ROUGH_BTYPES = (BSDF_ROUGHCONDUCTOR, BSDF_ROUGHPLASTIC, BSDF_ROUGHDIELECTRIC)
 SUPPORTED_BTYPES = (
-    BSDF_DIFFUSE, BSDF_DIELECTRIC, BSDF_MIRROR, BSDF_LAMBERTIAN, BSDF_GGX, BSDF_KISS,
-    BSDF_NORMALMAP,
+    BSDF_DIFFUSE, BSDF_DIELECTRIC, BSDF_MIRROR, BSDF_LAMBERTIAN, BSDF_GGX, *ROUGH_BTYPES,
+    BSDF_KISS, BSDF_NORMALMAP,
 )
 OUT_COLS = 24  # [p 3, nee_wi 3, smaxt, pd 3, li 3, throughput 3, eta, accum, contrib 3,
 #                 bsdf_pdf, discrete, alive]
@@ -61,6 +71,8 @@ MAT_FIELDS = ("metallic", "roughness", "anisotropy", "specular", "specular_tint"
 LTRI_F = 18  # a light triangle's face_shade[:, 0:18]: [p0 p1 p2 n0 n1 n2]
 LINFO_F = 8  # a light's [radiance 3, inv_area, has_normals, 0, 0, 0]
 MAT_I = 8  # a material's [tex_base, tex_metallic, tex_roughness, tex_normal, nested, 0, 0, 0]
+BECK_F = 8  # a material's [alpha, eta_c 3, k_c 3, 0] (the rough* lobes)
+BG_F = 8  # the background's [bg_color 3, bg_intensity, bg_tex, 0, 0, 0]
 TEX_I = 5 + MAX_MIP_LEVELS  # a texture node's [ttype, offset, width, height, n_levels,
 #                             mip_offset ...]
 TEX_F = 4  # a texture node's [uv_scale, const_color 3]
@@ -134,13 +146,24 @@ def supported_reason(arrays, static) -> Tuple[bool, str]:
     description alone (no device read)."""
     if static.integrator_kind != "path_mis":
         return False, "integrator is not path_mis"
-    if static.env_importance:
-        return False, "env importance sampling enabled"
     if any(t not in SUPPORTED_BTYPES for t in static.btypes_present):
         return False, "BSDF type outside the kernel's set"
     if static.textured_fields and static.has_composite_textures:
         return False, "composite texture nodes with textured material fields"
+    if env_nee(static) and static.has_composite_textures:
+        return False, "composite texture nodes with env importance sampling"
     return True, "supported"
+
+
+def env_nee(static) -> bool:
+    """Is the importance-sampled environment a NEE stratum
+    (path_mis._nee_strata)?"""
+    return bool(static.env_importance and static.has_background)
+
+
+def rough_lobes(static) -> bool:
+    """Does the scene hold a rough* (Beckmann) material?"""
+    return any(t in ROUGH_BTYPES for t in static.btypes_present)
 
 
 def _grad_tensors(arrays):
@@ -148,8 +171,9 @@ def _grad_tensors(arrays):
     yield mt.base_color
     for name in MAT_FIELDS:
         yield getattr(mt, name)
+    yield from (mt.alpha, mt.eta_c, mt.k_c)
     yield from (arrays.face_shade, arrays.light_radiance, arrays.light_inv_area,
-                arrays.light_cdf)
+                arrays.light_cdf, arrays.bg_color, arrays.bg_intensity)
 
 
 def route_reason(arrays, static, tensors) -> Tuple[str, str]:
@@ -183,6 +207,11 @@ class ShadeTables:
     ltris: torch.Tensor  # (max(L, 1) * maxLF, 18)
     linfo: torch.Tensor  # (max(L, 1), 8)
     lcdf: torch.Tensor  # (max(L, 1), maxLF + 1)
+    beck: torch.Tensor  # (M, 8)
+    env_row: torch.Tensor  # (Eh + 1,) (placeholders without importance sampling)
+    env_col: torch.Tensor  # (Eh, Ew + 1)
+    env_pdf: torch.Tensor  # (Eh, Ew)
+    bg: torch.Tensor  # (8,)
     maxlf: int
     source: tuple  # ((tensor, its version) ...) the tables were packed from
 
@@ -195,7 +224,8 @@ def _sources(arrays) -> tuple:
     mt, tex = arrays.materials, arrays.textures
     return (mt.btype, *_grad_tensors(arrays), *(getattr(mt, k) for k in _MAT_IDS),
             *(getattr(tex, k) for k in _TEX_INTS), tex.mip_offset, tex.uv_scale,
-            tex.const_color, arrays.light_faces, arrays.light_mesh, arrays.mesh_has_normals)
+            tex.const_color, arrays.light_faces, arrays.light_mesh, arrays.mesh_has_normals,
+            arrays.env_row_cdf, arrays.env_col_cdf, arrays.env_pdf, arrays.bg_tex)
 
 
 def pack_tables(arrays) -> ShadeTables:
@@ -225,11 +255,19 @@ def pack_tables(arrays) -> ShadeTables:
     linfo = torch.cat(
         [arrays.light_radiance.detach().to(f32), arrays.light_inv_area.detach().to(f32)[:, None],
          has_n[:, None], torch.zeros((nl, LINFO_F - 5), dtype=f32, device=dev)], 1)
+    beck = torch.cat([mt.alpha.detach().to(f32)[:, None], mt.eta_c.detach().to(f32),
+                      mt.k_c.detach().to(f32), torch.zeros((m, 1), dtype=f32, device=dev)], 1)
+    bg = torch.cat([arrays.bg_color.detach().to(f32), arrays.bg_intensity.detach().to(f32)[None],
+                    arrays.bg_tex.to(f32)[None], torch.zeros(3, dtype=f32, device=dev)])
     return ShadeTables(
         mats=mats.contiguous(), mat_i=mat_i.to(torch.int32).contiguous(),
         tex_i=tex_i.contiguous(), tex_f=tex_f.contiguous(),
         ltris=ltris.contiguous(), linfo=linfo.contiguous(),
-        lcdf=arrays.light_cdf.detach().to(f32).contiguous(), maxlf=int(maxlf),
+        lcdf=arrays.light_cdf.detach().to(f32).contiguous(), beck=beck.contiguous(),
+        env_row=arrays.env_row_cdf.detach().to(f32).contiguous(),
+        env_col=arrays.env_col_cdf.detach().to(f32).contiguous(),
+        env_pdf=arrays.env_pdf.detach().to(f32).contiguous(), bg=bg.contiguous(),
+        maxlf=int(maxlf),
         source=tuple((t, t._version) for t in _sources(arrays)),
     )
 
@@ -275,12 +313,16 @@ class _Params(ctypes.Structure):
         ("s1", _P), ("s2", _P),
         ("mats", _P), ("ltris", _P), ("linfo", _P), ("lcdf", _P),
         ("mat_i", _P), ("tex_i", _P), ("tex_f", _P), ("texels", _P),
+        ("beck", _P), ("env_row", _P), ("env_col", _P), ("env_pdf", _P), ("bg", _P),
         ("out", _P), ("pick", _P), ("cluster", _P), ("counts", _P),
     ] + [(name, ctypes.c_int) for name in (
         "n", "L", "maxlf", "n_strat", "draw_rr", "regularization", "wi_order_b",
         "tex_fields", "footprint", "nmap")
     ] + [("trace_bias", ctypes.c_float), ("acc_scale", ctypes.c_float),
-         ("pixel_cone", ctypes.c_float)]
+         ("pixel_cone", ctypes.c_float)
+    ] + [(name, ctypes.c_int) for name in (
+        "rough", "env", "env_h", "env_w", "env_steps", "bg_mode")
+    ] + [("bg_lod", ctypes.c_float)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -318,6 +360,16 @@ def _table(name, t, shape, dev, dtype=torch.float32):
     return t.data_ptr()
 
 
+def background_lookup(static) -> Tuple[int, float]:
+    """(mode, lod) of the background's lookup along an environment sample,
+    as lights.background_radiance makes it: 1 (trilinear at the pixel cone's
+    level of detail, rounded to f32) with mip filtering, else 0 (level-0
+    bilinear)."""
+    if not (static.mip_textures and static.pixel_cone > 0.0):
+        return 0, 0.0
+    return 1, float(np.float32(np.log2(max(static.pixel_cone / np.pi, 1e-9))))
+
+
 def footprint_mode(static) -> int:
     """The texture footprint the kernel derives for a scene, as
     path_mis._texture_footprint returns it: 2 the lod and the major uv
@@ -334,9 +386,9 @@ def shade_cuda(tables: ShadeTables, static, rows, ray_o, ray_d, li, alive, throu
     prefix of them, each row contiguous), the lane state
     after _shade_prologue (vectors may be strided views), the bounce's
     uniforms (Russian roulette where ``draws.u_rr`` is given) -> ShadeOut.
-    A scene with textured material fields also gives the texel pool
-    (``texels``, (P, 3)); the kernel derives the hits' footprint itself
-    (``footprint_mode``)."""
+    A scene with textured material fields or an importance-sampled
+    environment also gives the texel pool (``texels``, (P, 3)); the kernel
+    derives the hits' footprint itself (``footprint_mode``)."""
     dev = rows.device
     if dev.type != KERNEL_DEVICE:
         raise ValueError(f"the shade kernel takes {KERNEL_DEVICE.upper()} tensors, got {dev}")
@@ -346,10 +398,14 @@ def shade_cuda(tables: ShadeTables, static, rows, ray_o, ray_d, li, alive, throu
     if rows.dtype != torch.float32 or rows.dim() != 2 or rows.shape[1] != n \
             or rows.shape[0] < 34 or rows.stride(1) != 1 or rows.device != dev:
         raise ValueError(f"rows must be float32 (40, {n}) on {dev}, each row contiguous")
-    n_strat = static.num_lights
+    env = env_nee(static)
+    n_strat = static.num_lights + int(env)
     nl = tables.linfo.shape[0]
-    if n_strat > nl:
+    if static.num_lights > nl:
         raise ValueError("light tables smaller than the scene's lights")
+    eh, ew = tables.env_pdf.shape
+    if env and (eh, ew) != tuple(static.env_res):
+        raise ValueError(f"environment tables {(eh, ew)} are not the scene's {static.env_res}")
     vo, vd = _vec("ray_o", ray_o, n, dev), _vec("ray_d", ray_d, n, dev)
     vli, vthr = _vec("li", li, n, dev), _vec("throughput", throughput, n, dev)
     sc_eta = _lane("eta", eta, n, dev)
@@ -374,9 +430,12 @@ def shade_cuda(tables: ShadeTables, static, rows, ray_o, ray_d, li, alive, throu
                                                        "s1")}
     s2 = draw("s2", draws.s2, (n, 2))
     fields = static.textured_fields
-    if fields and texels is None:
-        raise ValueError(f"textured material fields {fields} need the texel pool")
+    if (fields or env) and texels is None:
+        raise ValueError("textured material fields and an importance-sampled environment "
+                         "need the texel pool")
     mode = footprint_mode(static) if fields else 0
+    rough = rough_lobes(static)
+    bg_mode, bg_lod = background_lookup(static)
     maxlf = tables.maxlf
     out = torch.empty((n, OUT_COLS), dtype=torch.float32, device=dev)
     pick = torch.empty(n, dtype=torch.int64, device=dev)
@@ -395,7 +454,12 @@ def shade_cuda(tables: ShadeTables, static, rows, ray_o, ray_d, li, alive, throu
         _table("mat_i", tables.mat_i, (tables.mats.shape[0], MAT_I), dev, torch.int32),
         _table("tex_i", tables.tex_i, (tables.tex_i.shape[0], TEX_I), dev, torch.int64),
         _table("tex_f", tables.tex_f, (tables.tex_i.shape[0], TEX_F), dev),
-        _table("texels", texels, (texels.shape[0], 3), dev) if fields else None,
+        _table("texels", texels, (texels.shape[0], 3), dev) if fields or env else None,
+        _table("beck", tables.beck, (tables.mats.shape[0], BECK_F), dev),
+        _table("env_row", tables.env_row, (eh + 1,), dev),
+        _table("env_col", tables.env_col, (eh, ew + 1), dev),
+        _table("env_pdf", tables.env_pdf, (eh, ew), dev),
+        _table("bg", tables.bg, (BG_F,), dev),
         out.data_ptr(), pick.data_ptr(), cluster.data_ptr(), counts.data_ptr(),
         n, static.num_lights, maxlf, n_strat, int(draws.u_rr is not None),
         int(static.regularization),
@@ -405,6 +469,7 @@ def shade_cuda(tables: ShadeTables, static, rows, ray_o, ray_d, li, alive, throu
         sum(FIELD_BITS[k] for k in fields), mode,
         int(BSDF_NORMALMAP in static.btypes_present),
         static.trace_bias, static.accumulated_roughness, static.pixel_cone,
+        int(rough), int(env), eh, ew, (max(ew, 2) - 1).bit_length(), bg_mode, bg_lod,
     )
     if n > 0:
         lib = _library()
@@ -415,6 +480,10 @@ def shade_cuda(tables: ShadeTables, static, rows, ray_o, ray_d, li, alive, throu
             metrics.texture_lookup(k, "kernel")
         if mode > 0:
             metrics.texture_footprint("kernel")
+        if env:
+            metrics.env_nee("kernel")
+        if rough:
+            metrics.beckmann_lobes("kernel")
         if code != 0:
             raise RuntimeError(
                 f"{SHADE.name} launch failed: {lib.kz_error_string(code).decode()} ({code})")

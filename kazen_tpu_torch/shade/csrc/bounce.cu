@@ -61,6 +61,18 @@
 // The untextured instance keeps 96 registers and no spill; TEX takes 112,
 // TEX with NMAP 122 (no spill); NMAP alone 96 with 12 bytes of spill.
 //
+// ROUGH adds the Beckmann lobes of roughconductor (per-channel eta and k),
+// roughplastic (the ks split of a diffuse and a glossy lobe) and
+// roughdielectric (reflect and refract, Walter's alpha scaling for the
+// sampled normal, the eta^2 Jacobian), from a second material table (alpha,
+// eta, k). ENV adds the importance-sampled environment as the last NEE
+// stratum (lights.sample_env_light): the row and column CDFs' searches, the
+// texel's solid-angle pdf, the background along the sampled direction
+// (lights.background_radiance: the lat-long lookup at the background's own
+// level of detail), an unbounded shadow ray and the power heuristic against
+// the BSDF's pdf. A scene with either runs the instance with every switch
+// on (the other switches then cost a branch on the material type).
+//
 // Everything above the launches' banner compiles for the host too, against
 // a header that defines the CUDA names for one host thread:
 // tests/shade_host.py runs the kernel body on the CPU.
@@ -109,6 +121,11 @@ struct Params {
   const long long* tex_i;  // (T, 19) [ttype, offset, width, height, n_levels, mip_offset 14]
   const float* tex_f;      // (T, 4) [uv_scale, const rgb]
   const float* texels;     // (P, 3)
+  const float* beck;       // (M, 8) [alpha, eta 3, k 3, 0] of the rough* lobes
+  const float* env_row;    // (Eh + 1,) the environment's row marginal CDF
+  const float* env_col;    // (Eh, Ew + 1) its per-row conditional CDFs
+  const float* env_pdf;    // (Eh, Ew) solid-angle pdf of each texel
+  const float* bg;         // (8,) [bg_color 3, intensity, texture id, 0 0 0]
   float* out;          // (n, 24)
   long long* pick;     // (n,)
   long long* cluster;  // (n,)
@@ -119,6 +136,11 @@ struct Params {
   int nmap;        // a normalmap material is present
   float trace_bias, acc_scale;
   float pixel_cone;  // one pixel's footprint angle (static.pixel_cone as f32)
+  int rough;       // a rough* material is present
+  int env;         // the environment is the last NEE stratum (pick == L)
+  int env_h, env_w, env_steps;  // the tables' size; the column search's steps
+  int bg_mode;     // the background lookup: 0 level-0 bilinear, 1 trilinear
+  float bg_lod;    // at this level of detail
 };
 
 namespace {
@@ -141,9 +163,12 @@ constexpr float PI_F = (float)PI_D;
 constexpr float TWO_PI = (float)(2.0 * PI_D);
 constexpr float PI_4 = (float)(PI_D / 4.0);
 constexpr float PI_2 = (float)(PI_D / 2.0);
+constexpr float INV_TWOPI = (float)(0.5 / PI_D);
+constexpr float INF_F = 3.0e38f;  // path_mis.INF
+constexpr int BECK_F = 8;
 
-enum { DIFFUSE = 0, DIELECTRIC = 1, MIRROR = 2, LAMBERTIAN = 3, GGX = 4, KISS = 8,
-       NORMALMAP = 9 };
+enum { DIFFUSE = 0, DIELECTRIC = 1, MIRROR = 2, LAMBERTIAN = 3, GGX = 4, ROUGHCONDUCTOR = 5,
+       ROUGHPLASTIC = 6, ROUGHDIELECTRIC = 7, KISS = 8, NORMALMAP = 9 };
 
 // ---------------------------------------------------------------------------
 // scalars with PyTorch's semantics
@@ -493,7 +518,176 @@ __device__ void kiss_eval_pdf(const Mat& mp, V3 v, V3 l, float accum, V3& f_out,
   pdf_out = m ? pdf : 0.0f;
 }
 
-// eval_pdf_base: (f * cos, pdf) of the lane's own type
+// ---------------------------------------------------------------------------
+// Beckmann microfacets (shade/ggx.py, core/warp.py) and the rough* lobes
+// (shade/bsdf.py); every product is of stacked vectors: DOT_A
+// ---------------------------------------------------------------------------
+
+struct Beck {
+  float alpha;
+  V3 eta, k;  // roughconductor's per-channel eta and k
+};
+
+__device__ __forceinline__ Beck load_beck(const float* beck, long long m) {
+  const float* r = beck + m * BECK_F;
+  return {r[0], v3(r[1], r[2], r[3]), v3(r[4], r[5], r[6])};
+}
+
+__device__ __forceinline__ bool is_rough(int btype) {
+  return btype == ROUGHCONDUCTOR || btype == ROUGHPLASTIC || btype == ROUGHDIELECTRIC;
+}
+
+// ggx.beckmann_ndf
+__device__ float beckmann_ndf(V3 m, float alpha) {
+  const float ct = m.z;
+  const float ct2 = clamp_lo(ct * ct, (float)1e-9);
+  const float tan2 = clamp_lo(1.0f - ct * ct, 0.0f) / ct2;
+  const float a2 = alpha * alpha;
+  return expf(-tan2 / a2) / ((PI_F * a2) * (ct2 * ct2));
+}
+
+// ggx.smith_beckmann_g1
+__device__ float beckmann_g1(V3 v, V3 m, float alpha) {
+  const float ct = v.z;
+  const float tan_theta =
+      fabsf(sqrtf(clamp_lo(1.0f - ct * ct, 0.0f)) / (ct == 0.0f ? (float)1e-9 : ct));
+  const float a = rcp(alpha * clamp_lo(tan_theta, (float)1e-2));
+  const float a2 = a * a;
+  const float approx = ((float)3.535 * a + (float)2.181 * a2) /
+                       ((1.0f + (float)2.276 * a) + (float)2.577 * a2);
+  const float g = (a >= (float)1.6 || tan_theta == 0.0f) ? 1.0f : approx;
+  return dot<DOT_A>(v, m) * ct <= 0.0f ? 0.0f : g;
+}
+
+// warp.square_to_beckmann
+__device__ V3 square_to_beckmann(float s0, float s1, float alpha) {
+  const float phi = TWO_PI * s0;
+  const float theta = atanf(alpha * sqrtf(logf(rcp(clamp_lo(1.0f - s1, (float)1e-9)))));
+  const float st = sinf(theta), ct = cosf(theta);
+  return {st * cosf(phi), st * sinf(phi), ct};
+}
+
+// warp.square_to_beckmann_pdf (x ** 3 is x * x * x on the card)
+__device__ float beckmann_pdf(V3 m, float alpha) {
+  const float ct = clamp2(m.z, -1.0f, 1.0f);
+  const float tan2 = clamp_lo(1.0f - ct * ct, 0.0f) / clamp_lo(ct * ct, (float)1e-9);
+  const float c = clamp_lo(ct, (float)1e-9);
+  const float pdf = expf(-tan2 / (alpha * alpha)) / (((PI_F * alpha) * alpha) * ((c * c) * c));
+  return ct > 0.0f ? pdf : 0.0f;
+}
+
+// ggx.fresnel_conductor, per channel
+__device__ __forceinline__ float fresnel_cond1(float ci, float eta, float k) {
+  const float tmp_f = eta * eta + k * k;
+  const float ci2 = ci * ci;
+  const float tmp = tmp_f * ci2;
+  const float e2 = (2.0f * eta) * ci;
+  const float rparl2 = ((tmp - e2) + 1.0f) / ((tmp + e2) + 1.0f);
+  const float rperp2 = ((tmp_f - e2) + ci2) / ((tmp_f + e2) + ci2);
+  return (rparl2 + rperp2) / 2.0f;
+}
+
+// km.fresnel_dielectric: (F, cos_theta_t)
+__device__ float fresnel_dielectric(float cos_i, float eta, float& cos_t) {
+  const float sc = cos_i > 0.0f ? rcp(eta) : eta;
+  const float cos_t2 = 1.0f - (1.0f - cos_i * cos_i) * (sc * sc);
+  const float ci = fabsf(cos_i);
+  const bool ok = cos_t2 > 0.0f;
+  const float ct = sqrtf(ok ? cos_t2 : 1.0f);
+  const float rs = (ci - eta * ct) / (ci + eta * ct);
+  const float rp = (eta * ci - ct) / (eta * ci + ct);
+  cos_t = ok ? (cos_i > 0.0f ? -ct : ct) : 0.0f;
+  return ok ? 0.5f * (rs * rs + rp * rp) : 1.0f;
+}
+
+// bsdf._safe_wh: the half-vector, +z where it is undefined
+__device__ V3 safe_wh(V3 wi, V3 wo, bool& ok) {
+  const V3 h = add(wi, wo);
+  ok = wi.z > 0.0f && wo.z > 0.0f && dot<DOT_A>(h, h) > (float)1e-12;
+  const V3 hs = ok ? h : v3(0.0f, 0.0f, 1.0f);
+  return divs(hs, norm<DOT_A>(hs));
+}
+
+// _roughconductor_eval and _roughconductor_pdf
+__device__ void conductor_eval_pdf(const Beck& bk, V3 wi, V3 wo, V3& f, float& pdf) {
+  bool m;
+  const V3 wh = safe_wh(wi, wo, m);
+  const float c = dot<DOT_A>(wh, wo);
+  const V3 fr = v3(fresnel_cond1(c, bk.eta.x, bk.k.x), fresnel_cond1(c, bk.eta.y, bk.k.y),
+                   fresnel_cond1(c, bk.eta.z, bk.k.z));
+  const float d = beckmann_ndf(wh, bk.alpha);
+  const float g = beckmann_g1(wi, wh, bk.alpha) * beckmann_g1(wo, wh, bk.alpha);
+  f = mask3(m, scale(fr, (d * g) / clamp_lo(4.0f * wi.z, (float)1e-9)));
+  const float denom = 4.0f * c;
+  const float safe = fabsf(denom) < (float)1e-9 ? (float)1e-9 : denom;
+  pdf = m ? (d * wh.z) / safe : 0.0f;
+}
+
+// _roughplastic_eval and _roughplastic_pdf (ks = 1 - max of the diffuse colour)
+__device__ void plastic_eval_pdf(const Mat& mp, const Beck& bk, V3 wi, V3 wo, V3& f,
+                                 float& pdf) {
+  bool m;
+  const V3 wh = safe_wh(wi, wo, m);
+  const float c = dot<DOT_A>(wh, wo);
+  const float d = beckmann_ndf(wh, bk.alpha);
+  const float fr = fresnel(c, mp.ext_ior, mp.int_ior);
+  const float g = beckmann_g1(wo, wh, bk.alpha) * beckmann_g1(wi, wh, bk.alpha);
+  const float ks = 1.0f - nanmax(nanmax(mp.base.x, mp.base.y), mp.base.z);
+  const float spec = (((ks * d) * fr) * g) / clamp_lo(4.0f * wi.z, (float)1e-9);
+  const float kd = INV_PI * wo.z;
+  f = mask3(m, v3(mp.base.x * kd + spec, mp.base.y * kd + spec, mp.base.z * kd + spec));
+  const float jh = rcp(clamp_lo(4.0f * fabsf(c), (float)1e-9));
+  const float p = ((ks * d) * wh.z) * jh + ((1.0f - ks) * wo.z) * INV_PI;
+  pdf = m ? p : 0.0f;
+}
+
+// _roughdielectric_eval and _roughdielectric_pdf
+__device__ void rough_dielectric_eval_pdf(const Mat& mp, const Beck& bk, V3 wi, V3 wo, V3& f,
+                                          float& pdf) {
+  // _rd_half
+  const float cos_i = wi.z;
+  const float eta0 = mp.int_ior / mp.ext_ior;
+  const bool is_reflect = cos_i * wo.z > 0.0f;
+  const float eta = cos_i > 0.0f ? eta0 : mp.ext_ior / mp.int_ior;
+  const V3 wm = normalize<DOT_A>(is_reflect ? add(wi, wo) : add(wi, scale(wo, eta)));
+  // the pdf's Jacobian, on the unflipped half-vector
+  const float o_m = dot<DOT_A>(wo, wm);
+  const float dwm_r = rcp(o_m == 0.0f ? (float)1e-9 : 4.0f * o_m);
+  const float sq = dot<DOT_A>(wi, wm) + eta * o_m;
+  const float dwm_t = ((eta * eta) * o_m) / clamp_lo(sq * sq, (float)1e-9);
+  // wm * sign(wm.z): torch.sign is 0 at +-0
+  const float sg = (float)(0.0f < wm.z) - (float)(wm.z < 0.0f);
+  const V3 wf = scale(wm, sg);
+  const float i_f = dot<DOT_A>(wi, wf), o_f = dot<DOT_A>(wo, wf);
+  float cos_t;
+  const float fr = fresnel_dielectric(i_f, eta0, cos_t);
+  const float d = beckmann_ndf(wf, bk.alpha);
+  const float g = beckmann_g1(wo, wf, bk.alpha) * beckmann_g1(wi, wf, bk.alpha);
+  const float refl = ((fr * g) * d) / clamp_lo(4.0f * fabsf(cos_i), (float)1e-9);
+  const float denom = i_f + eta * o_f;
+  const float cd2 = cos_i * (denom * denom);
+  const float trans = fabsf(((((((1.0f - fr) * d) * g) * eta) * eta) * i_f) * o_f /
+                            (cd2 == 0.0f ? (float)1e-9 : cd2));
+  float val = is_reflect ? refl : trans;
+  val = cos_i == 0.0f ? 0.0f : val;
+  f = v3(val, val, val);
+  const float prob = (d * wf.z) * (is_reflect ? fr : 1.0f - fr);
+  pdf = fabsf(prob * (is_reflect ? dwm_r : dwm_t));
+}
+
+// the rough* lobes' eval and pdf
+__device__ void rough_eval_pdf(const Mat& mp, const Beck& bk, V3 wi, V3 wo, V3& f,
+                               float& pdf) {
+  if (mp.btype == ROUGHCONDUCTOR)
+    conductor_eval_pdf(bk, wi, wo, f, pdf);
+  else if (mp.btype == ROUGHPLASTIC)
+    plastic_eval_pdf(mp, bk, wi, wo, f, pdf);
+  else
+    rough_dielectric_eval_pdf(mp, bk, wi, wo, f, pdf);
+}
+
+// eval_pdf_base: (f * cos, pdf) of the lane's own type (rough* lobes:
+// rough_eval_pdf)
 __device__ void bsdf_eval_pdf(const Mat& mp, V3 wi, V3 wo, float accum, V3& f, float& pdf) {
   switch (mp.btype) {
     case DIFFUSE:
@@ -522,6 +716,56 @@ struct Sample {
   bool disc;
 };
 
+// the rough* lobes' samples (_roughconductor_sample, _roughplastic_sample,
+// _roughdielectric_sample)
+__device__ Sample rough_sample(const Mat& mp, const Beck& bk, V3 wi, float s1, float s2a,
+                               float s2b) {
+  Sample r;
+  r.eta = 1.0f;
+  r.disc = false;
+  V3 val;
+  if (mp.btype == ROUGHDIELECTRIC) {
+    const float cos_i = wi.z;
+    const float eta0 = mp.int_ior / mp.ext_ior;
+    const float alpha = bk.alpha * ((float)1.2 - (float)0.2 * sqrtf(fabsf(cos_i)));
+    const V3 wm = square_to_beckmann(s2a, s2b, alpha);
+    const float pdf_m = beckmann_pdf(wm, alpha);
+    const float i_m = dot<DOT_A>(wi, wm);
+    float cos_t;
+    const float fr = fresnel_dielectric(i_m, eta0, cos_t);
+    const bool refl = s1 <= fr;
+    // _rd_refract
+    const float eta_eff = cos_t < 0.0f ? rcp(eta0) : eta0;
+    const V3 refracted = sub(scale(wm, i_m * eta_eff + cos_t), scale(wi, eta_eff));
+    r.wo = refl ? reflect(wi, wm) : refracted;
+    r.eta = refl ? 1.0f : (cos_t < 0.0f ? eta0 : mp.ext_ior / mp.int_ior);
+    const float cos_o = r.wo.z;
+    const bool ok = (refl ? cos_i * cos_o > 0.0f : (cos_i * cos_o < 0.0f && cos_t != 0.0f)) &&
+                    pdf_m > 0.0f;
+    const float d = beckmann_ndf(wm, alpha);
+    const float g = beckmann_g1(r.wo, wm, alpha) * beckmann_g1(wi, wm, alpha);
+    const float pc = pdf_m * cos_i;
+    const float w = fabsf(((d * g) * i_m) / (pc == 0.0f ? (float)1e-9 : pc));
+    r.w = mask3(ok, v3(w, w, w));
+    rough_dielectric_eval_pdf(mp, bk, wi, r.wo, val, r.pdf);
+    return r;
+  }
+  const V3 wh = square_to_beckmann(s2a, s2b, bk.alpha);
+  if (mp.btype == ROUGHCONDUCTOR) {
+    r.wo = normalize<DOT_A>(reflect(wi, wh));
+    conductor_eval_pdf(bk, wi, r.wo, val, r.pdf);
+  } else {
+    const float ks = 1.0f - nanmax(nanmax(mp.base.x, mp.base.y), mp.base.z);
+    const V3 wo_spec = normalize<DOT_A>(reflect(wi, wh));
+    r.wo = s1 < ks ? wo_spec : cosine_hemisphere(s2a, s2b);
+    plastic_eval_pdf(mp, bk, wi, r.wo, val, r.pdf);
+  }
+  const V3 w = divs(val, clamp_lo(r.pdf, (float)1e-9));
+  r.w = mask3(wi.z > 0.0f && r.wo.z > 0.0f && r.pdf > 0.0f, w);
+  return r;
+}
+
+// the lane's own type's sample (rough* lobes: rough_sample)
 __device__ Sample bsdf_sample(const Mat& mp, V3 wi, float s1, float s2a, float s2b,
                               float accum) {
   Sample r;
@@ -643,15 +887,18 @@ __device__ __forceinline__ V3 bilinear_level(const float* texels, const long lon
 
 // _eval_leaf of node tid at (uvx, uvy) with the lane's footprint: an image
 // (bilinear, trilinear at lod, or the mean of the probes along the major
-// half-axis), a constant, or 0 for a composite node
+// half-axis, as p.footprint says; BG: the background's lookup, as
+// p.bg_mode says), a constant, or 0 for a composite node
+template <bool BG = false>
 __device__ V3 eval_leaf(const Params& p, long long tid, float uvx, float uvy, float lod,
                         float adu, float adv) {
+  const int mode = BG ? p.bg_mode : p.footprint;
   const long long* ti = p.tex_i + tid * TEX_I;
   const float* tf = p.tex_f + tid * TEX_F;
   const float uvs = tf[0];  // uv scale
   const long long w = ti[2], h = ti[3];
   V3 img;
-  if (p.footprint == 0) {
+  if (mode == 0) {
     const float u = uvx * uvs;
     const float v = (1.0f - uvy) * uvs;
     img = bilinear(p.texels, ti[1], w, h, u * (float)w, v * (float)h);
@@ -665,7 +912,7 @@ __device__ V3 eval_leaf(const Params& p, long long tid, float uvx, float uvy, fl
     const float f = lam - (float)l0;
     const float g = 1.0f - f;
     // trilinear(uv + t * aniso), t in [-1, 1] as f32; one probe without it
-    const int probes = p.footprint == 2 ? N_ANISO_PROBES : 1;
+    const int probes = mode == 2 ? N_ANISO_PROBES : 1;
     img = v3(0.0f, 0.0f, 0.0f);
     for (int k = 0; k < probes; ++k) {
       const float t = (float)(2.0 * k / (N_ANISO_PROBES - 1) - 1.0);
@@ -690,6 +937,63 @@ __device__ V3 eval_leaf(const Params& p, long long tid, float uvx, float uvy, fl
 __device__ __forceinline__ V3 field_value(const Params& p, int tex_id, V3 cst, float uvx,
                                           float uvy, float lod, float adu, float adv) {
   return tex_id >= 0 ? eval_leaf(p, tex_id, uvx, uvy, lod, adu, adv) : cst;
+}
+
+// ---------------------------------------------------------------------------
+// the importance-sampled environment (shade/lights.py)
+// ---------------------------------------------------------------------------
+
+// background_radiance along d: the lat-long lookup (textures.dir_to_uv) of
+// the background's image at its own level of detail, or its constant, times
+// its intensity; 0 along a non-finite direction
+__device__ V3 background(const Params& p, V3 d) {
+  const long long tid = (long long)p.bg[4];
+  V3 col = v3(p.bg[0], p.bg[1], p.bg[2]);
+  if (tid >= 0) {
+    const float u = (atan2f(d.x, d.z) + PI_F) * INV_TWOPI;
+    const float v = (asinf(clamp2(d.y, -1.0f, 1.0f)) + PI_2) * INV_PI;
+    col = eval_leaf<true>(p, tid, u, v, p.bg_lod, 0.0f, 0.0f);
+  }
+  return mask3(all_finite(d), scale(col, p.bg[3]));
+}
+
+// sample_env_light at (u1, u2): the direction, its pdf and radiance / pdf.
+// A division by the table's size is a product with its reciprocal, as
+// PyTorch's CUDA division by a Python number.
+__device__ void env_sample(const Params& p, float u1, float u2, V3& wi, float& pdf, V3& ls) {
+  const long long eh = p.env_h, ew = p.env_w;
+  const float* row = p.env_row;
+  // searchsorted(row_cdf, u1, right=True) - 1, clamped to a row
+  long long lo = 0, hi = eh + 1;
+  while (lo < hi) {
+    const long long mid = lo + ((hi - lo) >> 1);
+    if (!(u1 < row[mid])) lo = mid + 1;
+    else hi = mid;
+  }
+  long long i = lo - 1;
+  i = i < 0 ? 0 : (i > eh - 1 ? eh - 1 : i);
+  const float seg = clamp_lo(row[i + 1] - row[i], (float)1e-12);
+  const float dv = clamp2((u1 - row[i]) / seg, 0.0f, 1.0f);
+  const float v = ((float)i + dv) * (1.0f / (float)eh);
+  // lights._bisect_rows over the row's conditional CDF
+  const float* col = p.env_col + i * (ew + 1);
+  long long jlo = 0, jhi = ew;
+  for (int s = 0; s < p.env_steps; ++s) {
+    const long long mid = (jlo + jhi) / 2;
+    const bool right = u2 >= col[mid];
+    jlo = right ? mid : jlo;
+    jhi = right ? jhi : mid;
+  }
+  const long long j = jlo;
+  const float segc = clamp_lo(col[j + 1] - col[j], (float)1e-12);
+  const float du = clamp2((u2 - col[j]) / segc, 0.0f, 1.0f);
+  const float u = ((float)j + du) * (1.0f / (float)ew);
+  const float phi = u * TWO_PI - PI_F;
+  const float lat = (v - 0.5f) * PI_F;
+  const float cos_lat = cosf(lat);
+  wi = v3(cos_lat * sinf(phi), sinf(lat), cos_lat * cosf(phi));
+  pdf = p.env_pdf[i * ew + j];
+  ls = mask3(pdf > 0.0f, divs(background(p, wi), clamp_lo(pdf, (float)1e-12)));
 }
 
 // path_mis._texture_footprint of one lane, for p.footprint 1 (lod) or 2 (and
@@ -742,7 +1046,7 @@ __device__ __forceinline__ V3 ld(const float* p, long long i, long long sl, long
   return {q[0], q[sc], q[2 * sc]};
 }
 
-template <bool TEX, bool NMAP>
+template <bool TEX, bool NMAP, bool ROUGH, bool ENV>
 __global__ void __launch_bounds__(THREADS) shade_kernel(const Params p) {
   const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
   const bool active = i < p.n;
@@ -821,6 +1125,8 @@ __global__ void __launch_bounds__(THREADS) shade_kernel(const Params p) {
       eff = p.mat_i[material * MAT_I + 4];
       mp = load_mat(p.mats, eff);
     }
+    Beck bk = {0.0f, v3(0.0f, 0.0f, 0.0f), v3(0.0f, 0.0f, 0.0f)};
+    if (ROUGH && is_rough(mp.btype)) bk = load_beck(p.beck, eff);
     // the hit's uv (_prepare_core) and footprint, for the texture fetches
     float uvx = 0.0f, uvy = 0.0f, lod = 0.0f, adu = 0.0f, adv = 0.0f;
     int nrm_id = -1;
@@ -907,7 +1213,8 @@ __global__ void __launch_bounds__(THREADS) shade_kernel(const Params p) {
       thr = scale(thr, alive ? rcp(clamp_lo(prob, (float)1e-9)) : 1.0f);
     }
 
-    // (4) NEE: uniform pick, area-light sample, the BSDF's eval and pdf
+    // (4) NEE: uniform pick, an area-light sample (or the environment's),
+    // the BSDF's eval and pdf
     long long pick = 0;
     V3 nee_wi = d;
     V3 contrib = v3(0.0f, 0.0f, 0.0f);
@@ -915,35 +1222,41 @@ __global__ void __launch_bounds__(THREADS) shade_kernel(const Params p) {
     if (p.n_strat > 0) {
       long long k = (long long)floorf((float)p.n_strat * p.u_pick[i]);
       pick = k < 0 ? 0 : (k > p.n_strat - 1 ? p.n_strat - 1 : k);
-      const long long l = pick > p.L - 1 ? p.L - 1 : pick;
-      const float* cdf = p.lcdf + l * (p.maxlf + 1);
-      const float ut = p.u_tri[i];
-      int tri = 0;
-      for (int j = 1; j < p.maxlf; ++j) tri += ut >= cdf[j] ? 1 : 0;
-      tri = tri > p.maxlf - 1 ? p.maxlf - 1 : tri;
-      const float su0 = sqrtf(p.u_a[i]);
-      const float lu = 1.0f - su0;
-      const float lv = p.u_b[i] * su0;
-      const float* t = p.ltris + (l * p.maxlf + tri) * LTRI_F;
-      const V3 q0 = v3(t[0], t[1], t[2]), q1 = v3(t[3], t[4], t[5]), q2 = v3(t[6], t[7], t[8]);
-      const V3 m0 = v3(t[9], t[10], t[11]), m1 = v3(t[12], t[13], t[14]),
-               m2 = v3(t[15], t[16], t[17]);
-      const V3 lp = add(add(q0, scale(sub(q1, q0), lu)), scale(sub(q2, q0), lv));
-      const float* lin = p.linfo + l * LINFO_F;
-      const V3 n_interp = add(add(m0, scale(sub(m1, m0), lu)), scale(sub(m2, m0), lv));
-      const V3 n_geo = normalize<DOT_A>(cross(sub(q1, q0), sub(q2, q0)));
-      const V3 ln = lin[4] > 0.0f ? n_interp : n_geo;
-      const V3 to_light = sub(lp, hp);
-      const float dist = norm<DOT_A>(to_light);
-      const V3 wi = divs(to_light, clamp_lo(dist, (float)1e-9));
-      const float cosl = dot<DOT_A>(ln, neg(wi));
-      const float pdf =
-          cosl > 0.0f ? (lin[3] * (dist * dist)) / clamp_lo(cosl, (float)1e-9) : 0.0f;
-      const V3 rad = cosl > 0.0f ? v3(lin[0], lin[1], lin[2]) : v3(0.0f, 0.0f, 0.0f);
-      const bool lvalid = pdf > 0.0f && isfinite(pdf);
-      const V3 ls = mask3(lvalid, divs(rad, clamp_lo(pdf, (float)1e-9)));
-      nee_wi = wi;
-      const float nee_maxt = dist - p.trace_bias;
+      V3 ls;
+      float pdf, nee_maxt;
+      if (ENV && p.env && pick == p.L) {
+        env_sample(p, p.u_a[i], p.u_b[i], nee_wi, pdf, ls);
+        nee_maxt = INF_F;
+      } else {
+        const long long l = pick > p.L - 1 ? p.L - 1 : pick;
+        const float* cdf = p.lcdf + l * (p.maxlf + 1);
+        const float ut = p.u_tri[i];
+        int tri = 0;
+        for (int j = 1; j < p.maxlf; ++j) tri += ut >= cdf[j] ? 1 : 0;
+        tri = tri > p.maxlf - 1 ? p.maxlf - 1 : tri;
+        const float su0 = sqrtf(p.u_a[i]);
+        const float lu = 1.0f - su0;
+        const float lv = p.u_b[i] * su0;
+        const float* t = p.ltris + (l * p.maxlf + tri) * LTRI_F;
+        const V3 q0 = v3(t[0], t[1], t[2]), q1 = v3(t[3], t[4], t[5]), q2 = v3(t[6], t[7], t[8]);
+        const V3 m0 = v3(t[9], t[10], t[11]), m1 = v3(t[12], t[13], t[14]),
+                 m2 = v3(t[15], t[16], t[17]);
+        const V3 lp = add(add(q0, scale(sub(q1, q0), lu)), scale(sub(q2, q0), lv));
+        const float* lin = p.linfo + l * LINFO_F;
+        const V3 n_interp = add(add(m0, scale(sub(m1, m0), lu)), scale(sub(m2, m0), lv));
+        const V3 n_geo = normalize<DOT_A>(cross(sub(q1, q0), sub(q2, q0)));
+        const V3 ln = lin[4] > 0.0f ? n_interp : n_geo;
+        const V3 to_light = sub(lp, hp);
+        const float dist = norm<DOT_A>(to_light);
+        const V3 wi = divs(to_light, clamp_lo(dist, (float)1e-9));
+        const float cosl = dot<DOT_A>(ln, neg(wi));
+        pdf = cosl > 0.0f ? (lin[3] * (dist * dist)) / clamp_lo(cosl, (float)1e-9) : 0.0f;
+        const V3 rad = cosl > 0.0f ? v3(lin[0], lin[1], lin[2]) : v3(0.0f, 0.0f, 0.0f);
+        const bool lvalid = pdf > 0.0f && isfinite(pdf);
+        ls = mask3(lvalid, divs(rad, clamp_lo(pdf, (float)1e-9)));
+        nee_wi = wi;
+        nee_maxt = dist - p.trace_bias;
+      }
       const V3 wo_local = to_local(false, fr, nee_wi);
       V3 wo_eff = wo_local;
       bool flipped = false;  // the perturbation flips wo's hemisphere
@@ -953,7 +1266,10 @@ __global__ void __launch_bounds__(THREADS) shade_kernel(const Params p) {
       }
       V3 f;
       float pdf_b;
-      bsdf_eval_pdf(mp, wi_eff, wo_eff, accum, f, pdf_b);
+      if (ROUGH && is_rough(mp.btype))
+        rough_eval_pdf(mp, bk, wi_eff, wo_eff, f, pdf_b);
+      else
+        bsdf_eval_pdf(mp, wi_eff, wo_eff, accum, f, pdf_b);
       if (flipped) {
         f = v3(0.0f, 0.0f, 0.0f);
         pdf_b = 0.0f;
@@ -971,7 +1287,9 @@ __global__ void __launch_bounds__(THREADS) shade_kernel(const Params p) {
     }
 
     // (6) BSDF sample
-    Sample res = bsdf_sample(mp, wi_eff, p.s1[i], p.s2[2 * i], p.s2[2 * i + 1], accum);
+    Sample res = ROUGH && is_rough(mp.btype)
+                     ? rough_sample(mp, bk, wi_eff, p.s1[i], p.s2[2 * i], p.s2[2 * i + 1])
+                     : bsdf_sample(mp, wi_eff, p.s1[i], p.s2[2 * i], p.s2[2 * i + 1], accum);
     if (NMAP && perturbed) {
       // back through the perturbed frame; a hemisphere flip gets nothing
       const V3 wo_back = to_local(true, fr, to_world(pf, res.wo));
@@ -1018,14 +1336,16 @@ extern "C" int kz_shade_bounce(const Params* prm, void* stream) {
   const long long blocks = ((long long)prm->n + THREADS - 1) / THREADS;
   cudaStream_t s = (cudaStream_t)stream;
   const bool tex = prm->tex_fields != 0, nmap = prm->nmap != 0;
-  if (tex && nmap)
-    shade_kernel<true, true><<<(unsigned)blocks, THREADS, 0, s>>>(*prm);
+  if (prm->rough || prm->env)
+    shade_kernel<true, true, true, true><<<(unsigned)blocks, THREADS, 0, s>>>(*prm);
+  else if (tex && nmap)
+    shade_kernel<true, true, false, false><<<(unsigned)blocks, THREADS, 0, s>>>(*prm);
   else if (tex)
-    shade_kernel<true, false><<<(unsigned)blocks, THREADS, 0, s>>>(*prm);
+    shade_kernel<true, false, false, false><<<(unsigned)blocks, THREADS, 0, s>>>(*prm);
   else if (nmap)
-    shade_kernel<false, true><<<(unsigned)blocks, THREADS, 0, s>>>(*prm);
+    shade_kernel<false, true, false, false><<<(unsigned)blocks, THREADS, 0, s>>>(*prm);
   else
-    shade_kernel<false, false><<<(unsigned)blocks, THREADS, 0, s>>>(*prm);
+    shade_kernel<false, false, false, false><<<(unsigned)blocks, THREADS, 0, s>>>(*prm);
   return (int)cudaGetLastError();
 }
 

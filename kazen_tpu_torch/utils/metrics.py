@@ -91,8 +91,9 @@ class _Record:
     """What the tracer recorded: the open spans' stack and, since tracing
     began or the last collect(), the closed spans, the host reads by site,
     the texture lookups by field and route, the bounces by shade route and
-    the plain ones by reason, the sampler draws by route, the ray tensors
-    and the kernels' launch counts at the start."""
+    the plain ones by reason, the sampler draws by route, the texture
+    footprints, environment NEE and Beckmann lobes by route, the ray
+    tensors and the kernels' launch counts at the start."""
 
     def __init__(self):
         self.offset_ns = time.time_ns() - time.perf_counter_ns()
@@ -105,6 +106,8 @@ class _Record:
         self.shade_plain_reason = {}
         self.sampler_route = {}
         self.texture_footprint = {}
+        self.env_nee = {}
+        self.beckmann_lobes = {}
         self.rays = []
         self.launches0 = _launch_counts()
 
@@ -241,6 +244,22 @@ def texture_footprint(route: str) -> None:
         _rec.texture_footprint[route] = _rec.texture_footprint.get(route, 0) + 1
 
 
+def env_nee(route: str) -> None:
+    """Count one bounce whose NEE samples the importance-sampled environment
+    (a stratum of the light pick) by route: "kernel" (a shade kernel launch)
+    or "plain" (a plain shade stage)."""
+    if _on:
+        _rec.env_nee[route] = _rec.env_nee.get(route, 0) + 1
+
+
+def beckmann_lobes(route: str) -> None:
+    """Count one bounce of a scene that holds a rough* (Beckmann) material
+    by route: "kernel" (a shade kernel launch) or "plain" (a plain shade
+    stage)."""
+    if _on:
+        _rec.beckmann_lobes[route] = _rec.beckmann_lobes.get(route, 0) + 1
+
+
 def rays(nrays) -> None:
     """Keep a pass's ray count (a device tensor) for ``collect()``, which
     sums them once."""
@@ -252,8 +271,9 @@ def collect() -> dict:
     """Everything recorded since tracing began or the last collect(), which
     is cleared: ``spans`` (closed spans, in the order they closed),
     ``host_reads`` ({site: count}), ``texture_lookups`` ({field: {route:
-    count}}), ``shade_route``, ``sampler_route`` and ``texture_footprint``
-    ({route: count}), ``shade_plain_reason`` ({reason: count}),
+    count}}), ``shade_route``, ``sampler_route``, ``texture_footprint``,
+    ``env_nee`` and ``beckmann_lobes`` ({route: count}),
+    ``shade_plain_reason`` ({reason: count}),
     ``launches`` ({CUDA kernel: launches since}), ``rays`` (their sum). One
     synchronize where a span recorded CUDA events or a ray count lives on
     the card. Spans still open go to the next collect()."""
@@ -262,7 +282,7 @@ def collect() -> dict:
     if rec is None:
         return {"spans": [], "host_reads": {}, "texture_lookups": {}, "shade_route": {},
                 "shade_plain_reason": {}, "sampler_route": {}, "texture_footprint": {},
-                "launches": {}, "rays": 0.0}
+                "env_nee": {}, "beckmann_lobes": {}, "launches": {}, "rays": 0.0}
     spans, rec.spans = rec.spans, []
     reads, rec.host_reads = rec.host_reads, {}
     lookups, rec.texture_lookups = rec.texture_lookups, {}
@@ -270,6 +290,8 @@ def collect() -> dict:
     reasons, rec.shade_plain_reason = rec.shade_plain_reason, {}
     draws, rec.sampler_route = rec.sampler_route, {}
     footprints, rec.texture_footprint = rec.texture_footprint, {}
+    env, rec.env_nee = rec.env_nee, {}
+    beckmann, rec.beckmann_lobes = rec.beckmann_lobes, {}
     counts, rec.rays = rec.rays, []
     launches0, rec.launches0 = rec.launches0, _launch_counts()
     if not _on and not rec.stack:
@@ -283,7 +305,8 @@ def collect() -> dict:
     total = float(torch.stack([r.double() for r in counts]).sum()) if counts else 0.0
     return {"spans": spans, "host_reads": reads, "texture_lookups": lookups,
             "shade_route": routes, "shade_plain_reason": reasons, "sampler_route": draws,
-            "texture_footprint": footprints, "launches": launches, "rays": total}
+            "texture_footprint": footprints, "env_nee": env, "beckmann_lobes": beckmann,
+            "launches": launches, "rays": total}
 
 
 def write_chrome_trace(path: str, collected: dict) -> None:
@@ -306,6 +329,7 @@ def write_chrome_trace(path: str, collected: dict) -> None:
              "shade_plain_reason": collected["shade_plain_reason"],
              "sampler_route": collected["sampler_route"],
              "texture_footprint": collected["texture_footprint"],
+             "env_nee": collected["env_nee"], "beckmann_lobes": collected["beckmann_lobes"],
              "launches": collected["launches"], "rays": collected["rays"]}
     with open(path, "w") as f:
         json.dump({"traceEvents": events, "displayTimeUnit": "ms", "otherData": other}, f,

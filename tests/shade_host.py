@@ -39,20 +39,21 @@ static struct { unsigned x; } blockIdx, threadIdx;
 HOST_DRIVER = r"""
 #include "bounce_body.cu"
 namespace {
-template <bool TEX, bool NMAP> void run(const Params& p) {
+template <bool TEX, bool NMAP, bool ROUGH, bool ENV> void run(const Params& p) {
   for (long long i = 0; i < p.n; ++i) {
     blockIdx.x = (unsigned)(i / THREADS);
     threadIdx.x = (unsigned)(i % THREADS);
-    shade_kernel<TEX, NMAP>(p);
+    shade_kernel<TEX, NMAP, ROUGH, ENV>(p);
   }
 }
 }  // namespace
 extern "C" int kz_shade_bounce(const Params* p, void*) {
   const bool tex = p->tex_fields != 0, nmap = p->nmap != 0;
-  if (tex && nmap) run<true, true>(*p);
-  else if (tex) run<true, false>(*p);
-  else if (nmap) run<false, true>(*p);
-  else run<false, false>(*p);
+  if (p->rough || p->env) run<true, true, true, true>(*p);
+  else if (tex && nmap) run<true, true, false, false>(*p);
+  else if (tex) run<true, false, false, false>(*p);
+  else if (nmap) run<false, true, false, false>(*p);
+  else run<false, false, false, false>(*p);
   return 0;
 }
 extern "C" const char* kz_error_string(int) { return "host failure"; }

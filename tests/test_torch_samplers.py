@@ -55,6 +55,23 @@ def test_spec_equality_ignores_tables(specs):
     assert bare != streams_t.SamplerSpec(kind="pmj02bn", sample_count=4, seed=4)
 
 
+def test_host_tables_are_built_once_and_never_shared(specs):
+    """A second spec of the same sample count, at another seed, reuses the
+    host tables without rebuilding them and equals the first; its CPU
+    tensors are its own, so writing one leaves the cache as it was."""
+    _, st = specs[16]
+    built = tables_t._host_tables.cache_info().misses
+    again = tables_t.make_pmj02bn_spec(16, seed=11, device="cpu")
+    assert tables_t._host_tables.cache_info().misses == built
+    assert again.seed == 11 and again.pmj_pixel_table[1] == st.pmj_pixel_table[1]
+    for got, want in ((again.pmj_tables, st.pmj_tables), (again.bluenoise, st.bluenoise),
+                      (again.pmj_pixel_table[0], st.pmj_pixel_table[0])):
+        assert torch.equal(got, want) and got.data_ptr() != want.data_ptr()
+    again.pmj_tables.zero_()
+    assert torch.equal(tables_t.make_pmj02bn_spec(16, seed=3, device="cpu").pmj_tables,
+                       st.pmj_tables)
+
+
 def _pixels():
     """Pixels beyond the blue-noise period (128) and the pixel tiles, plus
     the lane-chunked pass's off-image padding column."""

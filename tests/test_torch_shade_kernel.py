@@ -44,6 +44,43 @@ def con2(spp=2, size=CON2_SIZE, **changes):
     return desc
 
 
+def textured_con1(width, height, spp=1, seed=7, small=False):
+    """The Textured scene of the benchmark's ``textured`` configuration
+    (kzbench/scenes/textured.py: kazen-con-1's whole pipeline) at ``width``
+    x ``height``; ``small`` cuts its sphere to 48x24 and its images to 32
+    texels (and the sky to 64x32) for the CPU."""
+    import json
+    import os
+
+    from kzbench.scenes import textured
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "kzbench", "configs", "textured.json")) as f:
+        config = json.load(f)
+    config.update(width=width, height=height, sample_count=spp, spp=spp, seed=seed)
+    if small:
+        config.update(sphere=dict(config["sphere"], nu=48, nv=24, image_size=32),
+                      normal_map_size=32, sky=dict(config["sky"], height=32, width=64,
+                                                   sun_rows=[8, 10], sun_cols=[20, 23]))
+    return textured.build(D, config)
+
+
+def _env_rough_con2(light=True):
+    """con-2 at 48x27 with its image sky importance-sampled, its sphere a
+    roughdielectric and a roughconductor and a roughplastic quad before the
+    back wall; without ``light``, the environment is the only NEE
+    stratum."""
+    desc = con2(spp=1, size=(48, 27), importance=True)
+    desc.meshes[-1].bsdf = D.RoughDielectric(roughness=0.3)
+    desc.meshes += [bc.make_mesh([-0.9, 0.2, 0.8], [0, 0.5, 0], [0.5, 0, 0],
+                                 bsdf=D.RoughConductor(material="Cu", alpha=0.4)),
+                    bc.make_mesh([0.4, 0.2, 0.8], [0, 0.5, 0], [0.5, 0, 0],
+                                 bsdf=D.RoughPlastic(alpha=0.3, kd=(0.2, 0.5, 0.7)))]
+    if not light:
+        desc.meshes = [m for m in desc.meshes if m.light is None]
+    return desc
+
+
 @pytest.fixture(scope="module")
 def con2_scene():
     return compile_scene(con2(), device="cpu", megakernel=False)
@@ -88,18 +125,47 @@ def _scene_case(case):
     return desc
 
 
+def _composite_sky():
+    """con-2 with its background importance-sampled and a composite node
+    (a colorramp) over its image."""
+    desc = con2(importance=True)
+    desc.background.texture = D.ColorRamp(input=desc.background.texture, min=0.1, max=0.9)
+    return desc
+
+
 @pytest.mark.parametrize("case, reason", [
     ("composite texture", "composite texture nodes with textured material fields"),
-    ("env importance", "env importance sampling enabled"),
-    ("roughconductor", "BSDF type outside the kernel's set"),
-    ("roughplastic", "BSDF type outside the kernel's set"),
-    ("roughdielectric", "BSDF type outside the kernel's set"),
+    ("composite sky", "composite texture nodes with env importance sampling"),
 ])
 def test_scene_exclusions_take_the_plain_route(case, reason):
-    arrays, static = compile_scene(_scene_case(case), device="cpu", megakernel=False)
+    desc = _composite_sky() if case == "composite sky" else _scene_case(case)
+    arrays, static = compile_scene(desc, device="cpu", megakernel=False)
     assert bk.supported_reason(arrays, static) == (False, reason)
     assert bk.route_reason(arrays, static, (_Lane("cuda"),)) == ("plain", reason)
     assert arrays.shade_tables is None
+
+
+@pytest.mark.parametrize("case", ["env importance", "roughconductor", "roughplastic",
+                                  "roughdielectric", "textured con1"])
+def test_rough_lobes_and_env_importance_take_the_kernel(case):
+    """The Beckmann lobes and the importance-sampled environment are in the
+    kernel's class: con-2 with each rough* material on its sphere or its
+    sky importance-sampled, and the benchmark's Textured scene with all of
+    them; their tables hold each material's alpha, eta and k and the
+    environment's CDFs, pdf and background."""
+    desc = textured_con1(8, 8) if case == "textured con1" else _scene_case(case)
+    arrays, static = compile_scene(desc, device="cpu", megakernel=False)
+    assert bk.supported_reason(arrays, static) == (True, "supported")
+    assert bk.route_reason(arrays, static, (_Lane("cuda"),)) == ("kernel", "supported")
+    tb, mt = arrays.shade_tables, arrays.materials
+    assert torch.equal(tb.beck[:, 0], mt.alpha)
+    assert torch.equal(tb.beck[:, 1:4], mt.eta_c) and torch.equal(tb.beck[:, 4:7], mt.k_c)
+    assert torch.equal(tb.env_pdf, arrays.env_pdf) and torch.equal(tb.env_col, arrays.env_col_cdf)
+    assert torch.equal(tb.env_row, arrays.env_row_cdf)
+    assert torch.equal(tb.bg, torch.cat([arrays.bg_color, arrays.bg_intensity[None],
+                                         arrays.bg_tex.float()[None], torch.zeros(3)]))
+    assert bk.env_nee(static) == (case in ("env importance", "textured con1"))
+    assert bk.rough_lobes(static) == (case != "env importance")
 
 
 @pytest.mark.parametrize("case", ["textured field", "normal map", "config 3", "textured"])
@@ -376,12 +442,23 @@ def test_footprint_columns_follow_the_scene(mip, aniso, mode, host_library, monk
     assert "footprint" not in inspect.signature(bk.shade_cuda).parameters
 
 
+def _helpers_textured(width, height):
+    """The port tests' Textured box without composite nodes
+    (tests/torch_port_helpers.py, which needs JAX for its description)."""
+    helpers = pytest.importorskip("torch_port_helpers")
+    return helpers.to_port(helpers.textured_scene(width, height, spp=1, composite=False))
+
+
 HOST_CASES = {
     "con2": lambda: con2(spp=1, size=(48, 27)),
     "config3": lambda: bc.at_size(bc.config_scene(3, spp=1), 48, 27),
     "mixed": lambda: shade_check.mixed_scene(40, 40, sphere=True),
     **{name: (lambda kw=kw: shade_check.textured_scene(40, 40, **kw))
        for name, kw in shade_check.TEXTURED.items()},
+    "textured_con1": lambda: textured_con1(40, 40, small=True),
+    "textured_helpers": lambda: _helpers_textured(40, 40),
+    "con2_env_rough": lambda: _env_rough_con2(),
+    "con2_env_only": lambda: _env_rough_con2(light=False),
 }
 
 
@@ -570,6 +647,144 @@ def test_kernel_footprint_branches_match_plain_on_the_host(host_library, monkeyp
         assert max(differ.values()) <= 0.01 * n, (bounce, differ)
 
 
+ZERO_ROW = 128  # the environment row whose texels' pdf _rough_env_branches zeroes
+
+
+def _rough_env_branches(device="cpu"):
+    """The Textured scene (its sphere and images cut for the CPU) and one
+    ray a lane, 32 lanes a group, whose hits reach the rough* lobes' and the
+    environment sample's edge branches: camera rays at the roughconductor,
+    roughplastic and roughdielectric quads, rays at each quad's back (wi
+    below the horizon; the dielectric from inside), grazing rays at the
+    conductor (sampled wo below the horizon) and at the dielectric from
+    inside (total internal reflection). The environment's row ZERO_ROW has
+    its texels' pdf set to 0."""
+    from kazen_tpu_torch.accel.intersect import Rays
+
+    arrays, static = compile_scene(textured_con1(16, 16, small=True), device=device,
+                                   megakernel=False)
+    pdf = arrays.env_pdf.clone()
+    pdf[ZERO_ROW] = 0.0
+    arrays = dataclasses.replace(arrays, env_pdf=pdf)
+    rs = np.random.default_rng(5)
+    k = 32
+
+    def on(x, y, z):
+        pts = np.stack([rs.uniform(*x, k), rs.uniform(*y, k), np.full(k, z)], 1)
+        return torch.from_numpy(pts.astype(np.float32))
+
+    def unit(v):
+        return torch.nn.functional.normalize(torch.tensor([v], dtype=torch.float32), dim=1)
+
+    eye = torch.tensor([0.0, 1.0, -2.5])
+    cond, plas, diel = ((-0.9, -0.5), (1.3, 1.7), 0.9), ((0.5, 0.9), (1.3, 1.7), 0.9), \
+        ((-0.25, 0.25), (0.1, 0.4), -0.5)
+    fronts = torch.cat([on(*cond), on(*plas), on(*diel)])
+    back = torch.cat([on(*cond[:2], 0.95), on(*plas[:2], 0.95), on(*diel[:2], -0.3)])
+    graze_c, graze_d = unit([0.0, -1.0, 0.08]), unit([0.0, -1.0, -0.1])
+    o = torch.cat([eye.expand(3 * k, 3), back, on(*cond) - 0.3 * graze_c,
+                   on(*diel) - 0.3 * graze_d])
+    d = torch.cat([torch.nn.functional.normalize(fronts - eye, dim=1),
+                   torch.tensor([0.0, 0.0, -1.0]).expand(3 * k, 3), graze_c.expand(k, 3),
+                   graze_d.expand(k, 3)])
+    n = o.shape[0]
+    rays = Rays(o=o.contiguous().to(device), d=d.contiguous().to(device),
+                mint=torch.full((n,), path_mis.EPSILON, device=device),
+                maxt=torch.full((n,), path_mis.INF, device=device))
+    return arrays, static, rays
+
+
+def _edge_draws(arrays, monkeypatch):
+    """path_mis._bounce_draws with every other lane's light pick on the
+    environment (the last of 2 strata) and, on a quarter of the lanes each,
+    its row draw at 0, at 1 - 2^-24 (its column draw too) and at the start
+    of ZERO_ROW (the streams advance as they did)."""
+    orig = path_mis._bounce_draws
+    start = float(arrays.env_row_cdf[ZERO_ROW])
+    top = float(np.float32(1.0 - 2.0 ** -24))
+
+    def edges(spec, static, stream, draw_rr):
+        stream, dr = orig(spec, static, stream, draw_rr)
+        lane = torch.arange(dr.s1.shape[0], device=dr.s1.device) % 8
+        u_a = torch.where(lane == 0, 0.0, torch.where(lane == 2, top, torch.where(
+            lane == 4, start, dr.u_a)))
+        u_b = torch.where(lane == 2, top, torch.where(lane == 6, 0.0, dr.u_b))
+        u_pick = torch.where(lane % 2 == 0, 0.75, dr.u_pick)
+        return stream, dr._replace(u_pick=u_pick, u_a=u_a, u_b=u_b)
+
+    monkeypatch.setattr(path_mis, "_bounce_draws", edges)
+    return edges
+
+
+def _rough_env_lanes(arrays, static, spec, st, draws):
+    """Per lane, on the first bounce: the environment picked with its row
+    draw at 0, at 1 - 2^-24 and on the zero-pdf row; a rough* lane with wi
+    below the horizon, a conductor's sampled wo below the horizon (its
+    half-vector then +z in the eval), a roughdielectric sample in total
+    internal reflection, and one that refracts."""
+    from kazen_tpu_torch.core import math as km
+    from kazen_tpu_torch.core import warp
+    from kazen_tpu_torch.scene.compiler import (BSDF_ROUGHCONDUCTOR, BSDF_ROUGHDIELECTRIC,
+                                                BSDF_ROUGHPLASTIC)
+    from kazen_tpu_torch.shade import lights
+
+    its = path_mis._hit_interaction(st)
+    hit = its.valid
+    wi = its.sh_frame.to_local(-st.ray_d)
+    mp = arrays.materials.rows(its.material)
+    env = hit & (draws.u_pick >= 0.5)
+    pdf = lights.sample_env_light(arrays, static, draws.u_a, draws.u_b).pdf
+    rough = hit & ((mp.btype == BSDF_ROUGHCONDUCTOR) | (mp.btype == BSDF_ROUGHPLASTIC)
+                   | (mp.btype == BSDF_ROUGHDIELECTRIC))
+    wo = km.normalize(km.reflect(wi, warp.square_to_beckmann(draws.s2, mp.alpha)))
+    diel = hit & (mp.btype == BSDF_ROUGHDIELECTRIC)
+    alpha = mp.alpha * (1.2 - 0.2 * torch.sqrt(torch.abs(wi[:, 2])))
+    wm = warp.square_to_beckmann(draws.s2, alpha)
+    _, cos_t = km.fresnel_dielectric(km.dot(wi, wm), mp.int_ior / mp.ext_ior)
+    return {"env row draw 0": env & (draws.u_a == 0.0),
+            "env row draw 1 - 2^-24": env & (draws.u_a > 0.99),
+            "env zero-pdf row": env & (pdf == 0.0),
+            "rough wi below the horizon": rough & (wi[:, 2] < 0.0),
+            "conductor wo below the horizon": hit & (mp.btype == BSDF_ROUGHCONDUCTOR)
+            & (wi[:, 2] > 0.0) & (wo[:, 2] <= 0.0),
+            "dielectric total internal reflection": diel & (cos_t == 0.0),
+            "dielectric refraction": diel & (cos_t != 0.0)}
+
+
+def test_kernel_rough_and_env_branches_match_plain_on_the_host(host_library, monkeypatch):
+    """The kernel's rough* lobes and environment sample on lanes that reach
+    their edge branches (_rough_env_branches, _edge_draws), on every bounce:
+    every column within the host test's tolerance of _shade_plain (1e-5 +
+    1e-3 |plain| on all but 1% of the lanes); on the first bounce each
+    branch holds on 4 lanes or more."""
+    shade_host.kernel_on_host(monkeypatch, host_library)
+    arrays, static, rays = _rough_env_branches()
+    assert bk.env_nee(static) and static.num_lights == 1
+    edges = _edge_draws(arrays, monkeypatch)
+    spec, st = _first_bounce_state(arrays, static, rays)
+    for name, lanes_ in _rough_env_lanes(arrays, static, spec, st,
+                                         edges(spec, static, st.stream, False)[1]).items():
+        assert int(lanes_.sum()) >= 4, (name, int(lanes_.sum()))
+    off, routed = [], path_mis._shade
+
+    def held(scene, st_, state, li, alive, draws):
+        got = routed(scene, st_, state, li, alive, draws)
+        off.append(_close_lanes(got, path_mis._shade_plain(scene, st_, state, li, alive, draws)))
+        return got
+
+    monkeypatch.setattr(path_mis, "_shade", held)
+    metrics.collect()
+    with metrics.tracing():
+        for depth in range(static.max_depth):
+            st = path_mis._bounce_ordered(arrays, static, spec, st, depth >= 3)
+    got = metrics.collect()
+    assert got["shade_route"] == {"kernel": static.max_depth}
+    assert got["env_nee"] == got["beckmann_lobes"] == {"kernel": static.max_depth}
+    n = rays.o.shape[0]
+    for bounce, differ in enumerate(off, 1):
+        assert max(differ.values()) <= 0.01 * n, (bounce, differ)
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -584,6 +799,7 @@ CARD_CASES = {
     "config3_2160p": lambda: bc.at_size(bc.config_scene(3, spp=1), 3840, 2160),
     **{name: (lambda kw=kw: shade_check.textured_scene(256, 256, **kw))
        for name, kw in shade_check.TEXTURED.items()},
+    "textured_con1_2160p": lambda: textured_con1(3840, 2160),
 }
 
 
@@ -600,6 +816,29 @@ def test_kernel_matches_plain_on_card(case):
     assert out["equal"], out["differ"]
     assert out["shade_route"] == {"kernel": static.max_depth}
     assert out["kernel_launches"] == static.max_depth
+
+
+@pytest.mark.cuda
+def test_kernel_rough_and_env_branches_match_plain_on_card(monkeypatch):
+    """The rough* lobes' and the environment sample's edge branches on the
+    lanes of _rough_env_branches with _edge_draws: every column of every
+    bounce equal bit for bit to _shade_plain's, every bounce on the
+    kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the shade kernel has no CPU mode")
+    arrays, static, rays = _rough_env_branches("cuda")
+    edges = _edge_draws(arrays, monkeypatch)
+    spec, st = _first_bounce_state(arrays, static, rays)
+    lanes = _rough_env_lanes(arrays, static, spec, st, edges(spec, static, st.stream, False)[1])
+    assert all(int(m.sum()) >= 4 for m in lanes.values()), {
+        k: int(m.sum()) for k, m in lanes.items()}
+    records = []
+    with shade_check.held(records):
+        for depth in range(static.max_depth):
+            st = path_mis._bounce_ordered(arrays, static, spec, st, depth >= 3)
+    assert [r["route"] for r in records] == ["kernel"] * static.max_depth
+    for r in records:
+        assert not any(r["differ"].values()), (r["bounce"], r["differ"])
 
 
 @pytest.mark.cuda

@@ -71,6 +71,7 @@ def test_tracer_off_records_and_touches_nothing(what, scenes, monkeypatch):
     assert metrics.collect() == {"spans": [], "host_reads": {}, "texture_lookups": {},
                                  "shade_route": {}, "shade_plain_reason": {},
                                  "sampler_route": {}, "texture_footprint": {},
+                                 "env_nee": {}, "beckmann_lobes": {},
                                  "launches": {}, "rays": 0.0}
 
 
@@ -300,6 +301,38 @@ def test_shade_route_counts_each_bounce(scenes, tmp_path):
     other = json.loads(path.read_text())["otherData"]
     assert other["shade_route"] == {"plain": 10}
     assert other["shade_plain_reason"] == {"CPU tensors": 10}
+
+
+@pytest.mark.parametrize("route", ["plain", "kernel"])
+def test_env_nee_and_beckmann_lobes_count_each_bounce(route, tmp_path, monkeypatch):
+    """The env_nee and beckmann_lobes counters by route, one 1-pass render
+    of the Textured box (an importance-sampled sky, three rough* quads) at
+    depth 4: on the CPU the plain route counts each of its bounces once in
+    both; with the shade kernel's source built for the host in the card's
+    library's place, the kernel route counts each launch; con-2 (a sky
+    looked up on escape, no rough* material) counts nothing; off, nothing
+    is counted; the Chrome trace carries both."""
+    import shade_host
+
+    if route == "kernel":
+        shade_host.kernel_on_host(monkeypatch, shade_host.build(tmp_path))
+    arrays, static = compile_scene(to_port(textured_scene(8, 8, spp=1, composite=False)),
+                                   device="cpu")
+    assert static.env_importance and static.max_depth == 4
+    metrics.collect()
+    render_t.render(arrays, static, device="cpu")
+    got = metrics.collect()
+    assert got["env_nee"] == {} and got["beckmann_lobes"] == {}
+    _, got = traced(lambda: render_t.render(arrays, static, device="cpu"))
+    assert got["shade_route"] == {route: 4}
+    assert got["env_nee"] == {route: 4} and got["beckmann_lobes"] == {route: 4}
+    path = tmp_path / "trace.json"
+    metrics.write_chrome_trace(str(path), got)
+    other = json.loads(path.read_text())["otherData"]
+    assert other["env_nee"] == other["beckmann_lobes"] == {route: 4}
+    con2 = compile_scene(bc.at_size(bc.config_scene(4, spp=1), 8, 8), device="cpu")
+    _, got = traced(lambda: render_t.render(*con2, device="cpu"))
+    assert got["env_nee"] == {} and got["beckmann_lobes"] == {}
 
 
 def span(name, sid, parent, start_ms, end_ms, device_ms=None, **attrs):
